@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.accel.build import build_accel, morton_codes, morton_order
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.ops.intersect import intersect_brute
-from tpu_pathtracer.scene.procedural import three_spheres_scene
+from pathtracer.accel.build import build_accel, morton_codes, morton_order
+from pathtracer.config import RenderConfig
+from pathtracer.ops.intersect import intersect_brute
+from pathtracer.scene.procedural import three_spheres_scene
 
 
 @pytest.fixture(scope="module")
@@ -60,8 +60,8 @@ def test_accel_rays_from_inside(scene, kind):
 
 def test_accel_render_matches_brute(scene):
     # Full pipeline: cluster-accelerated render == brute render bitwise.
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
     cfg_b = RenderConfig(
         width=32, height=24, samples_per_launch=1, max_depth=3,
@@ -77,13 +77,12 @@ def test_accel_render_matches_brute(scene):
 
 def test_auto_dir_bits_pivot():
     # sort_dir_bits=0 (auto) resolves by cluster count: d2 for compact
-    # scenes, d3 where the finer frustum wedges measured faster
-    # (round-4 sweep C, artifacts/tpu_sweep_r04c.log).
+    # scenes, d3 for many-cluster ones.
     class _C:  # minimal stand-in: only num_clusters is consulted
         def __init__(self, n):
             self.num_clusters = n
 
-    from tpu_pathtracer.accel.cluster import ClusterAccel
+    from pathtracer.accel.cluster import ClusterAccel
 
     cfg_auto = RenderConfig(sort_dir_bits=0)
     assert ClusterAccel._dir_bits(_C(64), cfg_auto) == 2
@@ -94,7 +93,7 @@ def test_auto_dir_bits_pivot():
 
 
 def test_auto_stream_lanes():
-    from tpu_pathtracer.render.integrator import resolve_stream_lanes
+    from pathtracer.render.integrator import resolve_stream_lanes
 
     cfg = RenderConfig(stream_lanes=0)
     # 1080p -> 2073600/16 = 129600 -> nearest pow2 = 131072

@@ -7,8 +7,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from tpu_pathtracer.assets.obj import parse_mtl, parse_obj, triangulate
-from tpu_pathtracer.utils.image import load_exr, procedural_hdr, save_exr
+from pathtracer.assets.obj import parse_mtl, parse_obj, triangulate
+from pathtracer.utils.image import load_exr, procedural_hdr, save_exr
 
 REF = "/root/reference"
 
@@ -158,7 +158,7 @@ def test_exr_rejects_garbage(tmp_path):
 def test_builder_convention_materials(tmp_path):
     # File without maps -> deterministic random material; with maps -> gray.
     obj = write(tmp_path, "thing.obj", "v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
-    from tpu_pathtracer.scene.builder import load_scene
+    from pathtracer.scene.builder import load_scene
 
     s1 = load_scene([obj], rng_seed=7)
     s2 = load_scene([obj], rng_seed=7)
@@ -181,7 +181,7 @@ def test_builder_convention_texture_discovery(tmp_path):
     Image.fromarray(
         (np.ones((4, 4, 3)) * [255, 0, 0]).astype(np.uint8)
     ).save(tmp_path / "tex_albedo.png")
-    from tpu_pathtracer.scene.builder import load_scene
+    from pathtracer.scene.builder import load_scene
 
     s = load_scene([obj])
     has = np.asarray(s.materials.has_map)
@@ -205,7 +205,7 @@ def test_builder_mtl_source(tmp_path):
         "withmtl.obj",
         "mtllib m.mtl\nusemtl red\nv 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n",
     )
-    from tpu_pathtracer.scene.builder import load_scene
+    from pathtracer.scene.builder import load_scene
 
     s = load_scene([obj], material_source="mtl", add_floor=False)
     np.testing.assert_allclose(np.asarray(s.materials.diffuse_color)[0], [1, 0, 0])
@@ -219,11 +219,11 @@ class TestSceneFile:
         # system: the reference's hard-coded block as data).
         import jax.numpy as jnp
 
-        from tpu_pathtracer.config import RenderConfig
-        from tpu_pathtracer.render.camera import Camera
-        from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-        from tpu_pathtracer.scene.procedural import three_spheres_scene
-        from tpu_pathtracer.scene.scenefile import load_scene_file
+        from pathtracer.config import RenderConfig
+        from pathtracer.render.camera import Camera
+        from pathtracer.render.integrator import camera_arrays, render_frame
+        from pathtracer.scene.procedural import three_spheres_scene
+        from pathtracer.scene.scenefile import load_scene_file
 
         scene, camera, cfg = load_scene_file("scenes/spheres.toml")
         assert (cfg.width, cfg.height) == (64, 48)
@@ -249,7 +249,7 @@ class TestSceneFile:
             import pytest
 
             pytest.skip("reference assets unavailable")
-        from tpu_pathtracer.scene.scenefile import load_scene_file
+        from pathtracer.scene.scenefile import load_scene_file
 
         scene, camera, cfg = load_scene_file("scenes/suitcase.toml")
         assert scene.num_triangles > 2000
@@ -257,7 +257,7 @@ class TestSceneFile:
         assert cfg.max_depth == 20 and cfg.dof
 
     def test_scene_file_overrides_and_validation(self, tmp_path):
-        from tpu_pathtracer.scene.scenefile import load_scene_file
+        from pathtracer.scene.scenefile import load_scene_file
 
         _, _, cfg = load_scene_file(
             "scenes/spheres.toml", overrides={"max_depth": 9}
@@ -270,7 +270,7 @@ class TestSceneFile:
             load_scene_file(str(bad))
 
     def test_cli_scene_file(self, tmp_path):
-        from tpu_pathtracer.cli import main
+        from pathtracer.cli import main
 
         out = str(tmp_path / "sf.png")
         rc = main(["--scene-file", "scenes/spheres.toml", "--file", out,

@@ -4,8 +4,8 @@ importance-sampling distribution, geometry/Fresnel bounds."""
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.render import bsdf
-from tpu_pathtracer.utils import rng
+from pathtracer.render import bsdf
+from pathtracer.utils import rng
 
 
 def hemisphere_dirs(n, seed=0):
@@ -93,7 +93,7 @@ def test_ggx_delta_lobe_never_inf():
     # cancel, evaluate inf/inf = NaN.  The base estimator masks such
     # lanes (brdf-length check, reference cu:859) but the NEE light
     # arm consumes brdf_combined unmasked, so the NaN reached radiance
-    # on the high-poly scene (artifacts/tpu_sweep_r04b.log sum=nan).
+    # on the high-poly scene (radiance sum=nan).
     n = jnp.asarray([0.0, 1.0, 0.0], jnp.float32)
     # Search a small grid of (alpha, ndoth) f32 values around the
     # cancellation for denom == 0; d_ggx accepts unnormalised h, so

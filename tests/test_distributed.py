@@ -1,4 +1,4 @@
-"""2-process jax.distributed smoke test (VERDICT r2 weak #6 / next #8).
+"""2-process jax.distributed smoke test.
 
 `parallel.shard.initialize_distributed` is the one path a real multi-host
 pod needs that the single-process virtual-device mesh tests never touch.

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render import envmap
-from tpu_pathtracer.scene.scene import make_env
-from tpu_pathtracer.utils.image import procedural_hdr
+from pathtracer.config import RenderConfig
+from pathtracer.render import envmap
+from pathtracer.scene.scene import make_env
+from pathtracer.utils.image import procedural_hdr
 
 
 def test_direction_uv_roundtrip():
@@ -113,9 +113,9 @@ def test_alias_pdf_consistency():
 
 
 def test_nee_render_runs_and_reduces_variance():
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import single_sphere_scene
 
     # Sun-heavy env: NEE should slash variance on the diffuse sphere.
     env = envmap.with_importance_sampling(
@@ -146,9 +146,9 @@ def test_nee_render_runs_and_reduces_variance():
 
 
 def test_nee_requires_alias_table():
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import single_sphere_scene
 
     scene = single_sphere_scene(stacks=4, slices=8)  # default env, no table
     cfg = RenderConfig(
@@ -162,7 +162,7 @@ def test_nee_requires_alias_table():
 
 def test_nee_rejects_reference_rr():
     """NEE with the reference's quirky terminal-/p RR estimator is an
-    unvalidated combination (VERDICT r2 weak #4): config must refuse it,
+    unvalidated combination: config must refuse it,
     so no reachable CLI invocation runs it."""
     with pytest.raises(ValueError, match="rr_mode='standard'"):
         RenderConfig(
@@ -176,7 +176,7 @@ def test_cli_nee_implies_standard_rr():
     config instead of tripping the validation error — independent of
     the host process's sys.argv (the implication keys off argparse
     None-sentinel defaults, not argv sniffing)."""
-    from tpu_pathtracer.cli import build_arg_parser, build_from_args
+    from pathtracer.cli import build_arg_parser, build_from_args
 
     args = build_arg_parser().parse_args(
         ["--dim", "16x12", "--env", "procedural", "--nee"]
@@ -199,7 +199,7 @@ def test_scenefile_nee_implies_standard_rr(tmp_path):
     """A scene file enabling env importance sampling without an rr_mode
     key must load with standard RR (the implication lives at config
     assembly in scenefile.py, not just the CLI)."""
-    from tpu_pathtracer.scene.scenefile import load_scene_file
+    from pathtracer.scene.scenefile import load_scene_file
 
     f = tmp_path / "nee.toml"
     f.write_text(
@@ -215,14 +215,14 @@ def test_scenefile_nee_implies_standard_rr(tmp_path):
 @pytest.mark.slow
 def test_nee_matches_bsdf_sampling_mean():
     """The NEE estimator must converge to the SAME image as plain BSDF
-    sampling (VERDICT r1: a biased NEE would silently corrupt --nee).
+    sampling (a biased NEE would silently corrupt --nee).
 
     Diffuse sphere under a sun-heavy env; both estimators accumulate many
     subframes; means must agree within Monte-Carlo noise."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.film import accumulate
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.film import accumulate
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import single_sphere_scene
 
     env = envmap.with_importance_sampling(
         make_env(procedural_hdr(16, 32, seed=7, sun_intensity=40.0))
@@ -274,10 +274,10 @@ def test_nee_defensive_mix_matches_mean():
     """The defensive 0.5 alias + 0.5 cosine mixture is the SAME integral:
     its converged image must agree with plain NEE and the weight math is
     bounded by the balance heuristic (no silent bias)."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.film import accumulate
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.film import accumulate
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import single_sphere_scene
 
     env = envmap.with_importance_sampling(
         make_env(procedural_hdr(16, 32, seed=7, sun_intensity=40.0))
@@ -318,10 +318,10 @@ def test_nee_mis_spec_matches_mean():
     """Spec-lobe MIS re-weights BOTH arms of the spec env estimate with
     balance weights that sum to 1, so the converged image must agree
     with plain NEE (no silent bias from the pdf bookkeeping)."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.film import accumulate
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.film import accumulate
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import single_sphere_scene
 
     env = envmap.with_importance_sampling(
         make_env(procedural_hdr(16, 32, seed=7, sun_intensity=40.0))
@@ -362,9 +362,9 @@ def test_nee_multi_queue_matches_immediate_mean():
     closest-hit batch; RR-killed paths drop it, survivors scale by
     1/p_survive) is a DIFFERENT unbiased estimator from the immediate
     any-hit resolve — gate the agreement statistically, per scheduler."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import three_spheres_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import three_spheres_scene
 
     env = envmap.with_importance_sampling(make_env(procedural_hdr(16, 32)))
     scene = three_spheres_scene(stacks=6, slices=12).replace(env=env)
@@ -401,11 +401,11 @@ def test_nee_multi_queue_matches_immediate_mean():
 def test_nee_multi_queue_shadow_accounting():
     """mq counts traced (deferred) shadow rays, not hit lanes: totals stay
     plausible (> 0, <= segments) and the render is finite."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import (
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import (
         camera_arrays, render_frame_stats,
     )
-    from tpu_pathtracer.scene.procedural import single_sphere_scene
+    from pathtracer.scene.procedural import single_sphere_scene
 
     env = envmap.with_importance_sampling(make_env(procedural_hdr(16, 32)))
     scene = single_sphere_scene(stacks=6, slices=12).replace(env=env)
@@ -424,9 +424,9 @@ def test_nee_multi_queue_shadow_accounting():
 def test_nee_multi_queue_with_mis_and_defensive():
     """mq composes with spec-lobe MIS and the defensive mixture: finite,
     deterministic, and statistically equal to immediate resolve."""
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-    from tpu_pathtracer.scene.procedural import three_spheres_scene
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.scene.procedural import three_spheres_scene
 
     env = envmap.with_importance_sampling(
         make_env(procedural_hdr(16, 32, sun_intensity=100.0))

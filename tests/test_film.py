@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render import film
+from pathtracer.config import RenderConfig
+from pathtracer.render import film
 
 
 def ref_tonemap(x):

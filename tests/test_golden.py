@@ -19,12 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.render.film import post_process
-from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-from tpu_pathtracer.scene.procedural import single_sphere_scene, three_spheres_scene
-from tpu_pathtracer.utils.ssim import ssim
+from pathtracer.config import RenderConfig
+from pathtracer.render.camera import Camera
+from pathtracer.render.film import post_process
+from pathtracer.render.integrator import camera_arrays, render_frame
+from pathtracer.scene.procedural import single_sphere_scene, three_spheres_scene
+from pathtracer.utils.ssim import ssim
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 REF = "/root/reference"
@@ -51,10 +51,10 @@ def config_spheres_sunsky():
 def config_monkey():
     if not os.path.exists(f"{REF}/monkey.obj"):
         return None
-    from tpu_pathtracer.accel.build import build_accel
-    from tpu_pathtracer.scene.builder import load_scene
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.accel.build import build_accel
+    from pathtracer.scene.builder import load_scene
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = make_env(procedural_hdr(32, 64))
     scene = build_accel(
@@ -74,9 +74,9 @@ def config_monkey():
 def config_spheres_nee():
     """The beyond-reference flagship path: alias-table env importance
     sampling (NEE) with the textbook RR estimator."""
-    from tpu_pathtracer.render.envmap import with_importance_sampling
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.render.envmap import with_importance_sampling
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = with_importance_sampling(make_env(procedural_hdr(32, 64)))
     scene = three_spheres_scene(stacks=8, slices=16).replace(env=env)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.render.film import accumulate, post_process, to_uint8
-from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-from tpu_pathtracer.scene.procedural import single_sphere_scene, three_spheres_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render.camera import Camera
+from pathtracer.render.film import accumulate, post_process, to_uint8
+from pathtracer.render.integrator import camera_arrays, render_frame
+from pathtracer.scene.procedural import single_sphere_scene, three_spheres_scene
 
 
 def tiny_cfg(**kw):
@@ -137,8 +137,8 @@ def test_post_chain_end_to_end(sphere_scene):
 def test_high_poly_scene_smoke():
     # BASELINE config-4 substitute (statue/lion assets are stripped):
     # dense geometry through the cluster accel end-to-end.
-    from tpu_pathtracer.accel.build import build_accel
-    from tpu_pathtracer.scene.procedural import high_poly_scene
+    from pathtracer.accel.build import build_accel
+    from pathtracer.scene.procedural import high_poly_scene
 
     scene = build_accel(high_poly_scene(total_tris=5000), kind="cluster")
     cfg = tiny_cfg(intersector="cluster", samples_per_launch=1)
@@ -148,8 +148,8 @@ def test_high_poly_scene_smoke():
 
 
 def make_single_material_sphere(mat: dict, env_const=True):
-    from tpu_pathtracer.scene.procedural import sphere_mesh
-    from tpu_pathtracer.scene.scene import make_material_table, make_scene
+    from pathtracer.scene.procedural import sphere_mesh
+    from pathtracer.scene.scene import make_material_table, make_scene
 
     sv, sn = sphere_mesh((0.0, 0.0, 0.0), 1.0, 10, 20)
     return make_scene(sv, sn, None, np.zeros(len(sv), np.int32),
@@ -242,7 +242,7 @@ def test_deferred_shade_matches_dense():
     math and RNG chain are untouched, so the render must match the dense
     schedule to within compiler rounding — on a textured scene (bundle
     gathers) with mixed hit/miss lanes and glass/emissive materials."""
-    from tpu_pathtracer.scene.procedural import three_spheres_scene
+    from pathtracer.scene.procedural import three_spheres_scene
 
     scene = three_spheres_scene(stacks=8, slices=16)
     base = dict(width=64, height=48, samples_per_launch=3, max_depth=5,
@@ -272,7 +272,7 @@ def test_config_validation_rejects_degenerate_knobs():
 
     for kw in (dict(fifo_depth=0), dict(flush_every=0),
                dict(deferred_chunk_div=0), dict(sort_spatial_bits=10),
-               dict(sort_rays="bogus"), dict(vmem_headroom=0.1),
-               dict(vmem_headroom=16.0), dict(hier_min_clusters=1)):
+               dict(sort_rays="bogus"), dict(tri_test="bogus"),
+               dict(sort_dir_bits=5), dict(hier_min_clusters=1)):
         with _pytest.raises(ValueError):
             RenderConfig(**kw)

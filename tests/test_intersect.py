@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.ops.intersect import intersect_brute
+from pathtracer.ops.intersect import intersect_brute
 
 
 def unit_triangle():
@@ -80,7 +80,7 @@ def test_blocked_matches_unblocked():
 
 def test_sphere_analytic():
     # Rays at a triangulated sphere hit near the analytic distance.
-    from tpu_pathtracer.scene.procedural import sphere_mesh
+    from pathtracer.scene.procedural import sphere_mesh
 
     verts, _ = sphere_mesh((0.0, 0.0, 0.0), 1.0, stacks=64, slices=128)
     tris = jnp.asarray(verts)
@@ -92,7 +92,7 @@ def test_sphere_analytic():
 
 
 def test_occluded_matches_closest_hit():
-    from tpu_pathtracer.ops.intersect import occluded_brute
+    from pathtracer.ops.intersect import occluded_brute
 
     rs = np.random.RandomState(5)
     tris = jnp.asarray(rs.randn(37, 3, 3).astype(np.float32))

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.utils import math as vm
+from pathtracer.utils import math as vm
 
 
 def rand_vecs(n, seed=0):

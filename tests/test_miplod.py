@@ -1,8 +1,7 @@
-"""Texture mip/LOD ladder (VERDICT r2 next-round #1).
+"""Texture mip/LOD ladder.
 
-The v5e gather unit serves tables under ~16 MB ~8x faster (VMEM-staged by
-XLA — docs/perf_notes.md size sweep), so scenes whose bundled texture
-pool exceeds the cliff get a box-filtered mip pool that fits under it.
+Scenes whose bundled texture pool exceeds `mip_min_pool_bytes` get a
+box-filtered mip pool that fits the mip budget.
 These tests pin the build (exact box-filter means, budget respected), the
 sampling semantics (constant maps bitwise-identical across every mode;
 split mode exact for primary segments) and the no-op guarantee for small
@@ -13,17 +12,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-from tpu_pathtracer.scene.scene import (
+from pathtracer.config import RenderConfig
+from pathtracer.render.camera import Camera
+from pathtracer.render.integrator import camera_arrays, render_frame
+from pathtracer.scene.scene import (
     MAT_MIP_OFFSET,
     MAT_MIP_WIDTH,
     MAT_MIP_HEIGHT,
     make_material_table,
     make_texture_quads,
 )
-from tpu_pathtracer.scene.procedural import single_sphere_scene
+from pathtracer.scene.procedural import single_sphere_scene
 
 
 def _table(img, budget_bytes=8 * 8 * 32, **extra):
@@ -73,7 +72,7 @@ def test_mip_pool_is_exact_box_filter():
     # centre is an exact fetch (s == t == 0.5 lands on the 2x2 quad whose
     # corner c00 is the texel when u=(x+0.5)/w...) — simpler: decode the
     # pool rows directly, undoing the scramble.
-    from tpu_pathtracer.scene.scene import scramble_order
+    from pathtracer.scene.scene import scramble_order
 
     pool = np.asarray(tab.texture_bundles_mip)
     off = int(np.asarray(tab.attrs)[0, MAT_MIP_OFFSET])

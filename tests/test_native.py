@@ -6,8 +6,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from tpu_pathtracer.assets.native import get_lib, parse_obj_native
-from tpu_pathtracer.assets.obj import parse_obj, triangulate
+from pathtracer.assets.native import get_lib, parse_obj_native
+from pathtracer.assets.obj import parse_obj, triangulate
 
 REF = "/root/reference"
 
@@ -77,7 +77,7 @@ def test_native_missing_file():
 
 @pytest.mark.slow
 def test_builder_native_matches_python(tmp_path):
-    from tpu_pathtracer.scene.builder import load_scene
+    from pathtracer.scene.builder import load_scene
 
     if not os.path.exists(REF):
         pytest.skip("reference assets absent")

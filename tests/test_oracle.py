@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer import oracle
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-from tpu_pathtracer.scene.procedural import (
+from pathtracer import oracle
+from pathtracer.config import RenderConfig
+from pathtracer.render.camera import Camera
+from pathtracer.render.integrator import camera_arrays, render_frame
+from pathtracer.scene.procedural import (
     single_sphere_scene,
     three_spheres_scene,
 )
@@ -81,9 +81,9 @@ def test_oracle_glass():
 
 @pytest.mark.skipif(not os.path.exists(REF), reason="reference assets absent")
 def test_oracle_textured_monkey_equirect():
-    from tpu_pathtracer.scene.builder import load_scene
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.scene.builder import load_scene
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = make_env(procedural_hdr(16, 32))
     scene = load_scene([f"{REF}/monkey.obj"], env=env, rng_seed=0)
@@ -102,9 +102,9 @@ def test_oracle_textured_monkey_equirect():
 def test_oracle_nee():
     # NEE path: alias-table draws, shadow query and the lobe-partitioned
     # weight must agree lane-for-lane with the integrator.
-    from tpu_pathtracer.render.envmap import with_importance_sampling
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.render.envmap import with_importance_sampling
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = with_importance_sampling(make_env(procedural_hdr(16, 32, seed=5)))
     scene = three_spheres_scene(stacks=6, slices=12).replace(env=env)
@@ -119,9 +119,9 @@ def test_oracle_nee_defensive_mix():
     # Defensive-mixture NEE: branch choice, cosine draw, mixture pdf and
     # the discarded pair-parity draw must agree lane-for-lane with the
     # integrator (same contract as test_oracle_nee).
-    from tpu_pathtracer.render.envmap import with_importance_sampling
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.render.envmap import with_importance_sampling
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = with_importance_sampling(make_env(procedural_hdr(16, 32, seed=5)))
     scene = three_spheres_scene(stacks=6, slices=12).replace(env=env)
@@ -136,9 +136,9 @@ def test_oracle_nee_defensive_mix():
 def test_oracle_nee_mis_spec():
     # Spec-lobe MIS: the carried balance weight, the light-arm spec term
     # and the weighted miss credit must agree lane-for-lane.
-    from tpu_pathtracer.render.envmap import with_importance_sampling
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.render.envmap import with_importance_sampling
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = with_importance_sampling(make_env(procedural_hdr(16, 32, seed=5)))
     scene = three_spheres_scene(stacks=6, slices=12).replace(env=env)
@@ -156,12 +156,12 @@ def test_oracle_ssim_hero_crop():
     reduced-size version of tools/parity_oracle_ssim.py (full artifact:
     96x54 @ 64 spp -> SSIM 1.00000 reference-RR / 0.99996 NEE+MIS,
     artifacts/parity_report.json["oracle_ssim"])."""
-    from tpu_pathtracer import oracle
-    from tpu_pathtracer.render.film import post_process
-    from tpu_pathtracer.scene.builder import load_scene
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
-    from tpu_pathtracer.utils.ssim import ssim
+    from pathtracer import oracle
+    from pathtracer.render.film import post_process
+    from pathtracer.scene.builder import load_scene
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
+    from pathtracer.utils.ssim import ssim
 
     if not os.path.exists(f"{REF}/suitcase.obj"):
         pytest.skip("reference assets unavailable")

@@ -1,63 +1,126 @@
-"""Pallas packet-traversal kernel vs brute force (interpret mode on CPU —
-SURVEY.md §4 tier 2 equivalence testing)."""
+"""Triton packet-traversal kernels vs brute force.
 
+The kernels run through the Pallas interpreter here (`interpret=True`,
+the only way the tests reach interpret mode); `test_kernels_lower_for_cuda`
+lowers the same kernels for the CUDA platform, which runs the Triton
+lowering on the CPU without a card.  Tests marked `gpu` compile and run
+them on the card (the `gpu` fixture in tests/conftest.py decides whether
+one is present)."""
+
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.accel.build import build_accel
-from tpu_pathtracer.ops.intersect import intersect_brute
-from tpu_pathtracer.ops.intersect_pallas import (
-    intersect_clusters_pallas,
+from pathtracer.accel import cluster
+from pathtracer.accel.build import build_accel
+from pathtracer.ops import intersect_pallas as ip
+from pathtracer.ops.intersect import intersect_brute, occluded_brute
+from pathtracer.ops.intersect_pallas import (
+    intersect_clusters,
+    occluded_clusters,
     pack_cluster_tris,
 )
-from tpu_pathtracer.scene.procedural import three_spheres_scene
+from pathtracer.scene.procedural import three_spheres_scene
 
 
 @pytest.fixture(scope="module")
 def clustered():
-    scene = build_accel(
+    return build_accel(
         three_spheres_scene(stacks=6, slices=12), kind="cluster", cluster_size=64
     )
-    return scene
 
 
-def run_kernel(scene, o, d, r=128):
+@pytest.fixture(scope="module")
+def many_clusters():
+    # cluster_size=8 over the three-spheres scene: ~150 clusters / ~19
+    # supers — partial groups and far-point padding children.
+    return build_accel(
+        three_spheres_scene(stacks=10, slices=20), kind="cluster",
+        cluster_size=8,
+    )
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """Route ClusterAccel through the kernels (as on the GPU), run by the
+    Pallas interpreter."""
+    monkeypatch.setattr(cluster, "use_kernel", lambda: True)
+    monkeypatch.setattr(ip, "intersect_clusters",
+                        functools.partial(intersect_clusters, interpret=True))
+    monkeypatch.setattr(ip, "occluded_clusters",
+                        functools.partial(occluded_clusters, interpret=True))
+
+
+def rays(n, seed):
+    rs = np.random.RandomState(seed)
+    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
+    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    return o, d
+
+
+def run_kernel(scene, o, d, r=128, tri_block=1, tri_test="mt", t_max=1e16):
     acc = scene.accel
-    bt, bp, buv = intersect_clusters_pallas(
-        acc.tris16, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=r, interpret=True,
+    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
+    bt, bp, buv = intersect_clusters(
+        tris, acc.aabb8, acc.order, o, d, t_min=0.01, t_max=t_max,
+        rays_per_tile=r, tri_block=tri_block, tri_test=tri_test,
+        interpret=True,
     )
     prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
     return np.asarray(bt), prim, np.asarray(buv)
 
 
-def test_kernel_matches_brute(clustered):
-    rs = np.random.RandomState(0)
-    n = 256
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    bt, prim, buv = run_kernel(clustered, o, d)
+@pytest.mark.parametrize("tri_block", [1, 4, 16])
+@pytest.mark.parametrize("tri_test", ["mt", "bw"])
+def test_kernel_matches_brute(clustered, tri_block, tri_test):
+    o, d = rays(256, 0)
+    bt, prim, buv = run_kernel(clustered, o, d, tri_block=tri_block,
+                               tri_test=tri_test)
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
     hit = prim >= 0
-    np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=1e-5)
-    # Kernel-carried winner barycentrics match the finalize recompute.
-    np.testing.assert_allclose(
-        buv[hit], np.asarray(hb.bary)[hit], rtol=1e-4, atol=1e-6
-    )
     assert hit.sum() > 50
+    if tri_test == "mt":
+        np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=1e-5)
+        # Kernel-carried winner barycentrics match the finalize recompute.
+        np.testing.assert_allclose(
+            buv[hit], np.asarray(hb.bary)[hit], rtol=1e-4, atol=1e-6
+        )
+    else:
+        # bw reassociates the test arithmetic (see test_bw_tri_test_matches_mt).
+        np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=5e-4)
 
 
-def test_kernel_ray_padding(clustered):
+@pytest.mark.parametrize("r", [32, 64])
+def test_kernel_ray_padding(clustered, r):
     # N not a multiple of rays_per_tile: padding lanes must not alias.
-    rs = np.random.RandomState(1)
-    n = 100
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    bt, prim, _ = run_kernel(clustered, o, d, r=64)
+    o, d = rays(100, 1)
+    _, prim, _ = run_kernel(clustered, o, d, r=r)
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
+
+
+def test_kernel_segment_tmax(clustered):
+    # A finite t_max clips closest hits exactly like brute force.
+    o, d = rays(256, 8)
+    bt, prim, _ = run_kernel(clustered, o, d, t_max=3.0)
+    hb = intersect_brute(clustered.vertices, o, d, 0.01, 3.0)
+    np.testing.assert_array_equal(prim, np.asarray(hb.prim))
+    assert (prim >= 0).any() and (bt[prim >= 0] < 3.0).all()
+
+
+def test_kernel_launch_shape_validation(clustered):
+    acc = clustered.accel
+    o, d = rays(8, 0)
+    with pytest.raises(ValueError):
+        intersect_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                           rays_per_tile=96, interpret=True)
+    with pytest.raises(ValueError):
+        intersect_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                           tri_block=3, interpret=True)
 
 
 def test_pack_cluster_tris_layout():
@@ -65,97 +128,71 @@ def test_pack_cluster_tris_layout():
         [[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32
     )
     packed = pack_cluster_tris(verts, cluster_size=4)
-    assert packed.shape == (1, 4, 16)
-    np.testing.assert_allclose(packed[0, 0, 0:3], [0, 0, 0])   # v0
-    np.testing.assert_allclose(packed[0, 0, 3:6], [1, 0, 0])   # e1
-    np.testing.assert_allclose(packed[0, 0, 6:9], [0, 1, 0])   # e2
+    assert packed.shape == (1, 16, 4)            # [C, 16 rows, K]
+    np.testing.assert_allclose(packed[0, 0:3, 0], [0, 0, 0])   # v0
+    np.testing.assert_allclose(packed[0, 3:6, 0], [1, 0, 0])   # e1
+    np.testing.assert_allclose(packed[0, 6:9, 0], [0, 1, 0])   # e2
     # padding triangles are all-zero (degenerate, det == 0)
-    np.testing.assert_allclose(packed[0, 1:, :], 0.0)
+    np.testing.assert_allclose(packed[0, :, 1:], 0.0)
 
 
 def test_pack_cluster_tris_bw_layout():
-    from tpu_pathtracer.ops.intersect_pallas import pack_cluster_tris_bw
+    from pathtracer.ops.intersect_pallas import pack_cluster_tris_bw
 
     verts = np.asarray(
         [[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32
     )
     packed = pack_cluster_tris_bw(verts, cluster_size=4)
-    assert packed.shape == (1, 4, 16)
+    assert packed.shape == (1, 16, 4)
     # Unit right triangle in z=0 plane: n = e1 x e2 = +z, d0 = 0,
     # p1 = e2 x n / |n|^2 = (1,0,0), p2 = n x e1 = (0,1,0), c1 = c2 = 0.
-    np.testing.assert_allclose(packed[0, 0, 0:3], [0, 0, 1])   # n
-    np.testing.assert_allclose(packed[0, 0, 3], 0.0)           # d0
-    np.testing.assert_allclose(packed[0, 0, 4:7], [1, 0, 0])   # p1
-    np.testing.assert_allclose(packed[0, 0, 7], 0.0)           # c1
-    np.testing.assert_allclose(packed[0, 0, 8:11], [0, 1, 0])  # p2
-    np.testing.assert_allclose(packed[0, 0, 11], 0.0)          # c2
+    np.testing.assert_allclose(packed[0, 0:3, 0], [0, 0, 1])   # n
+    np.testing.assert_allclose(packed[0, 3, 0], 0.0)           # d0
+    np.testing.assert_allclose(packed[0, 4:7, 0], [1, 0, 0])   # p1
+    np.testing.assert_allclose(packed[0, 7, 0], 0.0)           # c1
+    np.testing.assert_allclose(packed[0, 8:11, 0], [0, 1, 0])  # p2
+    np.testing.assert_allclose(packed[0, 11, 0], 0.0)          # c2
     # padding triangles are all-zero (n = 0 -> den == 0 culls)
-    np.testing.assert_allclose(packed[0, 1:, :], 0.0)
+    np.testing.assert_allclose(packed[0, :, 1:], 0.0)
     # degenerate (zero-area) real triangle also packs to a culled row
     degen = np.asarray([[[1, 2, 3], [1, 2, 3], [1, 2, 3]]], np.float32)
-    np.testing.assert_allclose(pack_cluster_tris_bw(degen, 4)[0, 0, :], 0.0)
+    np.testing.assert_allclose(pack_cluster_tris_bw(degen, 4)[0, :, 0], 0.0)
 
 
 def test_bw_tri_test_matches_mt(clustered):
     """tri_test="bw" (Baldwin–Weber rows) agrees with the MT kernel:
     identical hit decisions and prims on the probe ray set, t/uv to
-    formulation-reassociation tolerance (tools/probe_tri_test.py measured
-    max rel t err ~1e-4)."""
-    rs = np.random.RandomState(2)
-    n = 256
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    acc = clustered.accel
-    assert acc.tris16bw is not None
-    bt_m, bp_m, buv_m = intersect_clusters_pallas(
-        acc.tris16, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=128, interpret=True,
-    )
-    bt_b, bp_b, buv_b = intersect_clusters_pallas(
-        acc.tris16bw, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=128, interpret=True, tri_test="bw",
-    )
-    np.testing.assert_array_equal(np.asarray(bp_b), np.asarray(bp_m))
-    hit = np.asarray(bp_m) != 0x7FFFFFFF
+    formulation-reassociation tolerance."""
+    o, d = rays(256, 2)
+    bt_m, bp_m, buv_m = run_kernel(clustered, o, d, tri_test="mt")
+    bt_b, bp_b, buv_b = run_kernel(clustered, o, d, tri_test="bw")
+    np.testing.assert_array_equal(bp_b, bp_m)
+    hit = bp_m >= 0
     assert hit.sum() > 50
-    np.testing.assert_allclose(
-        np.asarray(bt_b)[hit], np.asarray(bt_m)[hit], rtol=5e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(buv_b)[hit], np.asarray(buv_m)[hit], rtol=5e-3, atol=5e-5
-    )
+    np.testing.assert_allclose(bt_b[hit], bt_m[hit], rtol=5e-4)
+    np.testing.assert_allclose(buv_b[hit], buv_m[hit], rtol=5e-3, atol=5e-5)
 
 
 def test_bw_occlusion_matches_mt(clustered):
-    """Any-hit kernels under tri_test="bw" return the same occlusion bits
-    as MT (decision-only query — no tolerance needed beyond the shared
-    probe set's non-grazing rays)."""
-    from tpu_pathtracer.ops.intersect_pallas import occluded_clusters_pallas
-
-    rs = np.random.RandomState(3)
-    n = 256
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    """Any-hit under tri_test="bw" returns the same occlusion bits as MT."""
+    o, d = rays(256, 3)
     acc = clustered.accel
-    occ_m = occluded_clusters_pallas(
-        acc.tris16, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=64, interpret=True,
-    )
-    occ_b = occluded_clusters_pallas(
-        acc.tris16bw, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=64, interpret=True, tri_test="bw",
-    )
+    occ_m = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                              rays_per_tile=64, interpret=True)
+    occ_b = occluded_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
+                              rays_per_tile=64, tri_test="bw", interpret=True)
     np.testing.assert_array_equal(np.asarray(occ_b), np.asarray(occ_m))
     assert np.asarray(occ_m).sum() > 20
 
 
 def test_tri_test_auto_resolves_bw(clustered):
-    """auto = bw (sweep r05h adoption); explicit modes and the pre-bw
-    cache fallback resolve as documented."""
-    from tpu_pathtracer.config import RenderConfig
+    """Explicit "bw" resolves to the Baldwin–Weber rows; auto resolves to
+    "mt" (t agrees with brute force to rounding); with no bw rows "bw"
+    falls back to "mt"."""
+    from pathtracer.config import RenderConfig
 
     acc = clustered.accel
-    assert acc._tri(RenderConfig())[0] == "bw"
+    assert acc._tri(RenderConfig())[0] == "mt"
     assert acc._tri(RenderConfig(tri_test="mt"))[0] == "mt"
     assert acc._tri(RenderConfig(tri_test="bw"))[0] == "bw"
     old = acc.replace(tris16bw=None)
@@ -163,101 +200,100 @@ def test_tri_test_auto_resolves_bw(clustered):
     assert old._tri(RenderConfig(tri_test="bw"))[0] == "mt"
 
 
-def test_bw_render_matches_mt_end_to_end(clustered):
-    """Full interpret-mode render with cfg.tri_test="bw" vs "mt" — the
-    whole integrator (closest-hit + shading + film) stays visually
-    identical; only discrete-decision flips from the t reassociation may
-    differ on isolated lanes."""
-    import os
-
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.render.camera import Camera
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
+def test_bw_render_matches_mt_end_to_end(clustered, kernel_route):
+    """Full render through the kernel route with tri_test="bw" vs "mt" —
+    closest-hit + shading + film stay visually identical; only
+    discrete-decision flips from the t reassociation may differ on
+    isolated lanes."""
+    from pathtracer.config import RenderConfig
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
     cfg = dict(
         width=24, height=16, samples_per_launch=2, max_depth=3,
         dof=False, env_mode="constant", intersector="cluster",
     )
     cam = camera_arrays(Camera(), RenderConfig(**cfg))
-    os.environ["TPU_PT_PALLAS_INTERPRET"] = "1"
-    try:
-        img_m = np.asarray(render_frame(
-            clustered, cam, RenderConfig(**cfg, tri_test="mt"), jnp.int32(0)
-        ))
-        img_b = np.asarray(render_frame(
-            clustered, cam, RenderConfig(**cfg, tri_test="bw"), jnp.int32(0)
-        ))
-    finally:
-        del os.environ["TPU_PT_PALLAS_INTERPRET"]
+    img_m = np.asarray(render_frame(
+        clustered, cam, RenderConfig(**cfg, tri_test="mt"), jnp.int32(0)
+    ))
+    img_b = np.asarray(render_frame(
+        clustered, cam, RenderConfig(**cfg, tri_test="bw"), jnp.int32(0)
+    ))
     close = np.isclose(img_b, img_m, rtol=1e-3, atol=1e-4)
     assert close.mean() > 0.995, f"bw vs mt pixel agreement {close.mean()}"
 
 
-def test_occlusion_kernel_matches_brute(clustered):
-    from tpu_pathtracer.ops.intersect import occluded_brute
-    from tpu_pathtracer.ops.intersect_pallas import occluded_clusters_pallas
+def test_kernel_route_render_matches_xla_route(clustered, kernel_route):
+    """A render through the kernel route (sorted packets) agrees with the
+    XLA cluster scan (the CPU route) up to rounding of the kernel-carried
+    barycentrics."""
+    from pathtracer.config import RenderConfig
+    from pathtracer.render.camera import Camera
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
-    rs = np.random.RandomState(2)
-    n = 300
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    cfg = RenderConfig(width=24, height=16, samples_per_launch=2,
+                       max_depth=3, dof=False, env_mode="constant",
+                       intersector="cluster", tri_test="mt")
+    cam = camera_arrays(Camera(), cfg)
+    img_k = np.asarray(render_frame(clustered, cam, cfg, jnp.int32(0)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cluster, "use_kernel", lambda: False)
+        # another static config so render_frame retraces on this route
+        img_x = np.asarray(render_frame(
+            clustered, cam, cfg.replace(pallas_rays_per_tile=64),
+            jnp.int32(0),
+        ))
+    close = np.isclose(img_k, img_x, rtol=1e-3, atol=1e-4)
+    assert close.mean() > 0.995, f"kernel vs xla pixel agreement {close.mean()}"
+
+
+@pytest.mark.parametrize("tri_block", [1, 8])
+def test_occlusion_kernel_matches_brute(clustered, tri_block):
+    o, d = rays(300, 2)
     acc = clustered.accel
-    occ_k = np.asarray(occluded_clusters_pallas(
-        acc.tris16, acc.aabb8, acc.order, o, d, 0.01, 1e16,
-        rays_per_tile=64, interpret=True,
+    occ_k = np.asarray(occluded_clusters(
+        acc.tris16, acc.aabb8, acc.order, o, d, rays_per_tile=64,
+        tri_block=tri_block, interpret=True,
     ))
     occ_b = np.asarray(occluded_brute(clustered.vertices, o, d, 0.01, 1e16))
     np.testing.assert_array_equal(occ_k, occ_b)
     assert occ_b.any() and not occ_b.all()
 
 
-def test_occlusion_active_mask_parks_inactive(clustered):
-    """ClusterAccel.occluded(active=mask): active lanes always return
-    exactly the unmasked result (the mask is advisory; here on the CPU
-    XLA path it is a no-op), and the parking transform the TPU sorted
-    path applies (origin outside the scene AABB, direction +x — see
-    ClusterAccel.occluded) must make every parked ray miss everything
-    in the interpret-mode kernel."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.ops.intersect_pallas import occluded_clusters_pallas
+def test_occlusion_active_mask_parks_inactive(clustered, kernel_route):
+    """ClusterAccel.occluded(active=mask) on the kernel route: active lanes
+    return exactly the unmasked result, and the parking transform (origin
+    outside the scene AABB, direction +x — see ClusterAccel.occluded)
+    makes every parked ray miss everything in the any-hit kernel."""
+    from pathtracer.config import RenderConfig
 
     rs = np.random.RandomState(7)
-    n = 300
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    mask = jnp.asarray(rs.rand(n) < 0.4)
+    o, d = rays(300, 7)
+    mask = jnp.asarray(rs.rand(300) < 0.4)
     acc = clustered.accel
     cfg = RenderConfig(width=8, height=8, intersector="cluster")
-    full = np.asarray(
-        acc.occluded(clustered.vertices, o, d, 0.01, 1e16, cfg)
-    )
+    full = np.asarray(acc.occluded(clustered.vertices, o, d, 0.01, 1e16, cfg))
     masked = np.asarray(
-        acc.occluded(
-            clustered.vertices, o, d, 0.01, 1e16, cfg, active=mask
-        )
+        acc.occluded(clustered.vertices, o, d, 0.01, 1e16, cfg, active=mask)
     )
     m = np.asarray(mask)
     np.testing.assert_array_equal(masked[m], full[m])
+    want = np.asarray(occluded_brute(clustered.vertices, o, d, 0.01, 1e16))
+    np.testing.assert_array_equal(full, want)
 
-    # The parking transform itself, through the any-hit kernel.
     park = acc.scene_hi + (acc.scene_hi - acc.scene_lo) + 1.0
-    o_park = jnp.broadcast_to(park[None, :], (n, 3))
-    d_park = jnp.broadcast_to(jnp.array([1.0, 0.0, 0.0]), (n, 3))
-    occ_park = np.asarray(occluded_clusters_pallas(
-        acc.tris16, acc.aabb8, acc.order, o_park, d_park, 0.01, 1e16,
+    o_park = jnp.broadcast_to(park[None, :], (300, 3))
+    d_park = jnp.broadcast_to(jnp.array([1.0, 0.0, 0.0]), (300, 3))
+    occ_park = np.asarray(occluded_clusters(
+        acc.tris16, acc.aabb8, acc.order, o_park, d_park,
         rays_per_tile=64, interpret=True,
     ))
     assert not occ_park.any()
 
 
 def test_occlusion_xla_matches_brute(clustered):
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.ops.intersect import occluded_brute
-
-    rs = np.random.RandomState(3)
-    n = 300
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    o, d = rays(300, 3)
     occ_x = np.asarray(clustered.accel._occluded_xla(
         clustered.vertices, o, d, 0.01, 1e16
     ))
@@ -267,118 +303,27 @@ def test_occlusion_xla_matches_brute(clustered):
 
 def test_occlusion_segment_tmax(clustered):
     # A finite t_max must pass segments that END before the geometry.
-    from tpu_pathtracer.ops.intersect import occluded_brute
-    from tpu_pathtracer.ops.intersect_pallas import occluded_clusters_pallas
-
     o = jnp.asarray([[0.0, 0.5, 8.0]], jnp.float32)
     d = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
     acc = clustered.accel
-    far = occluded_clusters_pallas(acc.tris16, acc.aabb8, acc.order, o, d,
-                                   0.01, 1e16, rays_per_tile=64, interpret=True)
-    near = occluded_clusters_pallas(acc.tris16, acc.aabb8, acc.order, o, d,
-                                    0.01, 1.0, rays_per_tile=64, interpret=True)
-    assert bool(far[0]) == bool(occluded_brute(clustered.vertices, o, d, 0.01, 1e16)[0])
-    assert not bool(near[0])
-
-
-def test_streamed_kernel_matches_brute(clustered):
-    # Block-major two-level streamed closest hit (scene streamed once per
-    # call, per-tile scratch accumulator rows): must agree with brute
-    # exactly, incl. partial blocks, padding clusters, and boundary
-    # supergroups that mix real and padding children.
-    from tpu_pathtracer.ops.intersect_pallas import (
-        intersect_clusters_pallas_streamed,
-    )
-
-    rs = np.random.RandomState(6)
-    n = 200
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    acc = clustered.accel
-    bt, bp, buv = intersect_clusters_pallas_streamed(
-        acc.tris16, acc.aabb8, o, d, 0.01, 1e16,
-        rays_per_tile=128, block_clusters=4, branch=2, interpret=True,
-    )
-    prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
-    hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
-    np.testing.assert_array_equal(prim, np.asarray(hb.prim))
-    hit = prim >= 0
-    np.testing.assert_allclose(
-        np.asarray(bt)[hit], np.asarray(hb.t)[hit], rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(buv)[hit], np.asarray(hb.bary)[hit], rtol=1e-4, atol=1e-6
-    )
-    assert hit.sum() > 40
-
-
-def test_vmem_headroom_is_output_neutral(clustered):
-    # cfg.vmem_headroom only scales the scoped-VMEM compile budget (the
-    # cli/bench OOM-retry path, config.vmem_headroom): results must be
-    # bitwise identical at any headroom.
-    from tpu_pathtracer.ops.intersect_pallas import (
-        intersect_clusters_pallas_streamed,
-    )
-
-    rs = np.random.RandomState(9)
-    n = 100
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    acc = clustered.accel
-    a = intersect_clusters_pallas_streamed(
-        acc.tris16, acc.aabb8, o, d, 0.01, 1e16,
-        rays_per_tile=128, block_clusters=4, branch=2, interpret=True,
-    )
-    b = intersect_clusters_pallas_streamed(
-        acc.tris16, acc.aabb8, o, d, 0.01, 1e16,
-        rays_per_tile=128, block_clusters=4, branch=2, interpret=True,
-        vmem_headroom=2.0,
-    )
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-def test_streamed_occlusion_matches_brute(clustered):
-    # Streamed two-level any-hit (big-scene NEE shadow rays) vs brute.
-    from tpu_pathtracer.ops.intersect import occluded_brute
-    from tpu_pathtracer.ops.intersect_pallas import (
-        occluded_clusters_pallas_streamed,
-    )
-
-    rs = np.random.RandomState(5)
-    n = 300
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    acc = clustered.accel
-    occ_k = np.asarray(occluded_clusters_pallas_streamed(
-        acc.tris16, acc.aabb8, o, d, 0.01, 1e16,
-        rays_per_tile=64, block_clusters=4, branch=2, interpret=True,
-    ))
-    occ_b = np.asarray(occluded_brute(clustered.vertices, o, d, 0.01, 1e16))
-    np.testing.assert_array_equal(occ_k, occ_b)
-    assert occ_b.any() and not occ_b.all()
-
-    # Finite t_max: segments ending before geometry must pass.
-    o1 = jnp.asarray([[0.0, 0.5, 8.0]], jnp.float32)
-    d1 = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
-    near = occluded_clusters_pallas_streamed(
-        acc.tris16, acc.aabb8, o1, d1, 0.01, 1.0,
-        rays_per_tile=64, block_clusters=4, branch=2, interpret=True,
+    far = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                            t_min=0.01, t_max=1e16, rays_per_tile=64,
+                            interpret=True)
+    near = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                             t_min=0.01, t_max=1.0, rays_per_tile=64,
+                             interpret=True)
+    assert bool(far[0]) == bool(
+        occluded_brute(clustered.vertices, o, d, 0.01, 1e16)[0]
     )
     assert not bool(near[0])
 
 
 def test_octant_sort_roundtrip_and_kernel_equivalence(clustered):
-    """octant_sort + interpret-mode kernel + restore == unsorted kernel ==
-    brute: the permutation must be a bijection and per-ray results must
-    land back on their source lanes."""
-    from tpu_pathtracer.ops.intersect_pallas import octant_sort
+    """octant_sort + kernel + restore == brute: the permutation must be a
+    bijection and per-ray results must land back on their source lanes."""
+    from pathtracer.ops.intersect_pallas import octant_sort
 
-    rs = np.random.RandomState(2)
-    n = 256
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-
+    o, d = rays(256, 2)
     o_s, d_s, restore = octant_sort(o, d)
     # sorted keys are non-decreasing and the permutation restores inputs
     key = lambda dd: (
@@ -405,20 +350,17 @@ def test_octant_sort_roundtrip_and_kernel_equivalence(clustered):
 
 def test_spatial_sort_roundtrip(clustered):
     """(origin Morton, octant) key: still a bijection that restores
-    per-ray results; keys are spatial-major non-decreasing."""
-    from tpu_pathtracer.ops.intersect_pallas import octant_sort
+    per-ray results."""
+    from pathtracer.ops.intersect_pallas import octant_sort
 
-    rs = np.random.RandomState(5)
-    n = 200
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    o, d = rays(200, 5)
     acc = clustered.accel
     o_s, d_s, restore = octant_sort(
         o, d, scene_lo=acc.scene_lo, scene_hi=acc.scene_hi, spatial_bits=5
     )
     np.testing.assert_array_equal(np.asarray(restore(o_s)), np.asarray(o))
     np.testing.assert_array_equal(np.asarray(restore(d_s)), np.asarray(d))
-    bt_s, prim_s, _ = run_kernel(clustered, o_s, d_s)
+    _, prim_s, _ = run_kernel(clustered, o_s, d_s)
     prim = np.asarray(restore(jnp.asarray(prim_s)))
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
@@ -428,12 +370,9 @@ def test_dir_bits_sort_roundtrip(clustered):
     """dir_bits-refined key: still a bijection; refined keys stay
     octant-major (the magnitude bits sit BELOW the octant bits); kernel
     results restore to brute exactly; u32 overflow clamp engages."""
-    from tpu_pathtracer.ops.intersect_pallas import octant_sort, ray_sort_key
+    from pathtracer.ops.intersect_pallas import octant_sort, ray_sort_key
 
-    rs = np.random.RandomState(7)
-    n = 200
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    o, d = rays(200, 7)
     acc = clustered.accel
     o_s, d_s, restore = octant_sort(
         o, d, scene_lo=acc.scene_lo, scene_hi=acc.scene_hi,
@@ -441,7 +380,7 @@ def test_dir_bits_sort_roundtrip(clustered):
     )
     np.testing.assert_array_equal(np.asarray(restore(o_s)), np.asarray(o))
     np.testing.assert_array_equal(np.asarray(restore(d_s)), np.asarray(d))
-    bt_s, prim_s, _ = run_kernel(clustered, o_s, d_s)
+    _, prim_s, _ = run_kernel(clustered, o_s, d_s)
     prim = np.asarray(restore(jnp.asarray(prim_s)))
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
@@ -459,31 +398,18 @@ def test_dir_bits_sort_roundtrip(clustered):
     )
 
 
-def test_hier_kernel_matches_brute():
-    """Two-level (supercluster) kernel vs brute on a many-cluster scene:
-    cluster_size=8 over the three-spheres scene yields ~200 clusters /
-    ~25 supers, exercising partial groups and inverted pads."""
-    from tpu_pathtracer.ops.intersect_pallas import (
-        intersect_clusters_pallas_hier,
-    )
-
-    scene = build_accel(
-        three_spheres_scene(stacks=10, slices=20), kind="cluster",
-        cluster_size=8,
-    )
-    acc = scene.accel
+def test_hier_kernel_matches_brute(many_clusters):
+    """Two-level (supercluster) walk vs brute on a many-cluster scene."""
+    acc = many_clusters.accel
     assert acc.num_clusters >= 100
-    rs = np.random.RandomState(4)
-    n = 256
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    bt, bp, buv = intersect_clusters_pallas_hier(
-        acc.tris16, acc.aabb8_child, acc.aabb8_super, acc.order_super,
-        o, d, 0.01, 1e16, rays_per_tile=128, branch=acc.super_branch,
-        interpret=True,
+    o, d = rays(256, 4)
+    bt, bp, buv = intersect_clusters(
+        acc.tris16, acc.aabb8_child, acc.order, o, d,
+        supers=(acc.aabb8_super, acc.order_super), branch=acc.super_branch,
+        rays_per_tile=128, tri_block=4, interpret=True,
     )
     prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
-    hb = intersect_brute(scene.vertices, o, d, 0.01, 1e16)
+    hb = intersect_brute(many_clusters.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
     hit = prim >= 0
     np.testing.assert_allclose(
@@ -495,27 +421,15 @@ def test_hier_kernel_matches_brute():
     assert hit.sum() > 50
 
 
-def test_hier_occlusion_matches_brute():
-    from tpu_pathtracer.ops.intersect import occluded_brute
-    from tpu_pathtracer.ops.intersect_pallas import (
-        occluded_clusters_pallas_hier,
+def test_hier_occlusion_matches_brute(many_clusters):
+    acc = many_clusters.accel
+    o, d = rays(200, 6)
+    occ = occluded_clusters(
+        acc.tris16, acc.aabb8_child, acc.order, o, d,
+        supers=(acc.aabb8_super, acc.order_super), branch=acc.super_branch,
+        rays_per_tile=128, interpret=True,
     )
-
-    scene = build_accel(
-        three_spheres_scene(stacks=10, slices=20), kind="cluster",
-        cluster_size=8,
-    )
-    acc = scene.accel
-    rs = np.random.RandomState(6)
-    n = 200
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-    occ = occluded_clusters_pallas_hier(
-        acc.tris16, acc.aabb8_child, acc.aabb8_super, acc.order_super,
-        o, d, 0.01, 1e16, rays_per_tile=128, branch=acc.super_branch,
-        interpret=True,
-    )
-    want = occluded_brute(scene.vertices, o, d, 0.01, 1e16)
+    want = occluded_brute(many_clusters.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(np.asarray(occ), np.asarray(want))
     assert np.asarray(want).sum() > 20
 
@@ -523,7 +437,7 @@ def test_hier_occlusion_matches_brute():
 def test_entry_rank_matches_scalar_reference(clustered):
     """entry_rank == first front-to-back position whose cluster AABB the
     ray's [t_min, t_max] segment slab-overlaps (scalar numpy replay)."""
-    from tpu_pathtracer.ops.intersect_pallas import entry_rank
+    from pathtracer.ops.intersect_pallas import entry_rank
 
     acc = clustered.accel
     aabb8 = np.asarray(acc.aabb8)
@@ -565,31 +479,25 @@ def test_entry_sort_roundtrip_and_kernel_equivalence(clustered):
     bijection whose restore lands per-ray results back on source lanes;
     kernel results through it match brute exactly; keys are octant-major
     with the entry rank below."""
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.ops.intersect_pallas import (
-        entry_rank, entry_sort_key,
-    )
+    from pathtracer.config import RenderConfig
+    from pathtracer.ops.intersect_pallas import entry_rank, entry_sort_key
 
     acc = clustered.accel
     cfg = RenderConfig(width=8, height=8, sort_rays="entry")
-    rs = np.random.RandomState(13)
-    n = 200
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
+    o, d = rays(200, 13)
 
     o_s, d_s, restore = acc._sorted_rays("entry", o, d, cfg)
     np.testing.assert_array_equal(np.asarray(restore(o_s)), np.asarray(o))
     np.testing.assert_array_equal(np.asarray(restore(d_s)), np.asarray(d))
 
-    bt_s, prim_s, _ = run_kernel(clustered, o_s, d_s)
+    _, prim_s, _ = run_kernel(clustered, o_s, d_s)
     prim = np.asarray(restore(jnp.asarray(prim_s)))
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
 
-    # Sorted keys are non-decreasing and octant-major: stripping rank +
-    # dir bits recovers a non-decreasing octant sequence.
+    # Sorted keys are non-decreasing and octant-major.
     posinv = jnp.argsort(acc.order, axis=1)
-    rank = entry_rank(d_s * 0 + o_s * 0 + o_s, d_s, acc.aabb8, posinv)
+    rank = entry_rank(o_s, d_s, acc.aabb8, posinv)
     octant = (
         (np.asarray(d_s)[:, 0] > 0).astype(np.int32)
         + 2 * (np.asarray(d_s)[:, 1] > 0).astype(np.int32)
@@ -603,85 +511,46 @@ def test_entry_sort_roundtrip_and_kernel_equivalence(clustered):
     assert (np.diff(octant) >= 0).all()
 
 
-def test_entry_nearest_id_matches_scalar_reference(clustered):
-    """entry_nearest_id == the overlapped cluster with the smallest
-    max(tnear, t_min) (ties -> lower Morton id; C where none)."""
-    from tpu_pathtracer.ops.intersect_pallas import entry_nearest_id
+@pytest.mark.parametrize("query", ["closest", "any", "closest-two-level"])
+def test_kernels_lower_for_cuda(many_clusters, query):
+    """The Triton lowering accepts both kernels (and the two-level walk)
+    at a real launch shape: every primitive in the kernel bodies has a
+    Pallas-Triton lowering rule.  Lowering for a platform needs no
+    device, so this runs on the CPU."""
+    acc = many_clusters.accel
+    o, d = rays(1024, 0)
+    kw = dict(rays_per_tile=128, tri_block=4, num_warps=4, tri_test="bw")
+    if query == "any":
+        def fn(o, d):
+            return occluded_clusters(acc.tris16bw, acc.aabb8, acc.order,
+                                     o, d, **kw)
+    elif query == "closest":
+        def fn(o, d):
+            return intersect_clusters(acc.tris16bw, acc.aabb8, acc.order,
+                                      o, d, **kw)
+    else:
+        def fn(o, d):
+            return intersect_clusters(
+                acc.tris16bw, acc.aabb8_child, acc.order, o, d,
+                supers=(acc.aabb8_super, acc.order_super),
+                branch=acc.super_branch, **kw)
+    text = jax.jit(fn).trace(o, d).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
+    assert ("occluded_kernel" if query == "any" else "closest_kernel") in text
 
+
+@pytest.mark.gpu
+def test_kernels_on_card_match_brute(gpu, clustered):
+    """On the card: the compiled Triton kernels agree with brute force."""
+    o, d = rays(4096, 21)
     acc = clustered.accel
-    aabb8 = np.asarray(acc.aabb8)
-    c = acc.num_clusters
-    rs = np.random.RandomState(17)
-    n = 300
-    o = (rs.randn(n, 3) * 3).astype(np.float32)
-    d = rs.randn(n, 3).astype(np.float32)
-
-    got = np.asarray(entry_nearest_id(
-        jnp.asarray(o), jnp.asarray(d), acc.aabb8,
-        t_min=0.01, t_max=1e16, block=max(8, c // 2),
-    ))
-
-    inv = np.where(np.abs(d) > 1e-12, 1.0 / d, 3.4e38).astype(np.float32)
-    for i in range(n):
-        best_t, best_id = np.inf, c
-        for cid in range(c):
-            t0 = (aabb8[cid, 0:3] - o[i]) * inv[i]
-            t1 = (aabb8[cid, 3:6] - o[i]) * inv[i]
-            tn = np.minimum(t0, t1).max()
-            tf = np.maximum(t0, t1).min()
-            if (tn <= tf) and (tf >= 0.01) and (tn <= 1e16):
-                et = max(tn, np.float32(0.01))
-                if et < best_t:
-                    best_t, best_id = et, cid
-        assert got[i] == best_id, (i, got[i], best_id)
-
-
-def test_entry_sort_streamed_key_is_id_major():
-    """For a beyond-VMEM scene _sorted_rays('entry') groups by the
-    nearest overlapped cluster's MORTON id (id above octant), matching
-    the streamed kernel's block-major visit order; the permutation is
-    still a bijection."""
-    from tpu_pathtracer.accel.cluster import ClusterAccel, build_cluster_accel
-    from tpu_pathtracer.config import RenderConfig
-    from tpu_pathtracer.ops.intersect_pallas import entry_nearest_id
-
-    scene = build_accel(
-        three_spheres_scene(stacks=10, slices=20), kind="cluster",
-        cluster_size=8,
-    )
-    acc = scene.accel
-    assert isinstance(acc, ClusterAccel)
-    # Force the "streamed" routing decision without a 6 MB scene: shrink
-    # the budget by monkeypatching is heavy — instead check the key
-    # builder directly through a tiny accel flagged streamed via size.
-    cfg = RenderConfig(width=8, height=8, sort_rays="entry")
-    rs = np.random.RandomState(19)
-    n = 128
-    o = jnp.asarray((rs.randn(n, 3) * 3).astype(np.float32))
-    d = jnp.asarray(rs.randn(n, 3).astype(np.float32))
-
-    streamed = acc.tris16.size * 4 > 6 * 1024 * 1024
-    if not streamed:
-        # Small test scene: emulate the streamed branch by calling the
-        # same primitives _sorted_rays uses for it.
-        from tpu_pathtracer.ops.intersect_pallas import (
-            entry_sort_key, sort_by_key,
-        )
-
-        rank = entry_nearest_id(o, d, acc.aabb8)
-        octant = (
-            (d[:, 0] > 0).astype(jnp.int32)
-            + 2 * (d[:, 1] > 0).astype(jnp.int32)
-            + 4 * (d[:, 2] > 0).astype(jnp.int32)
-        )
-        key = entry_sort_key(
-            octant, rank, acc.num_clusters, directions=d,
-            dir_bits=2, octant_major=False,
-        )
-        o_s, d_s, restore = sort_by_key(o, d, key)
-        np.testing.assert_array_equal(np.asarray(restore(o_s)), np.asarray(o))
-        np.testing.assert_array_equal(np.asarray(restore(d_s)), np.asarray(d))
-        # id-major: stripping octant+dir bits leaves non-decreasing ids.
-        ks = np.sort(np.asarray(key).astype(np.int64))
-        ids = ks >> (3 + 6)   # 2 dir bits per axis below the octant
-        assert (np.diff(ids) >= 0).all()
+    _, bp, _ = intersect_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
+                                  tri_test="bw")
+    hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
+    prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
+    assert (prim == np.asarray(hb.prim)).mean() >= 0.9999
+    occ = occluded_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
+                            tri_test="bw")
+    want = occluded_brute(clustered.vertices, o, d, 0.01, 1e16)
+    assert (np.asarray(occ) == np.asarray(want)).mean() >= 0.9999

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.parallel.shard import make_mesh, render_frame_sharded
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.render.integrator import camera_arrays, render_frame
-from tpu_pathtracer.scene.procedural import single_sphere_scene
+from pathtracer.config import RenderConfig
+from pathtracer.parallel.shard import make_mesh, render_frame_sharded
+from pathtracer.render.camera import Camera
+from pathtracer.render.integrator import camera_arrays, render_frame
+from pathtracer.scene.procedural import single_sphere_scene
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +62,9 @@ def test_sample_sharding_allclose(scene):
 def test_pixel_sharding_with_nee_bitwise(scene):
     """Flagship estimator x flagship parallelism: env importance sampling
     under pixel sharding stays bitwise-identical to single-device."""
-    from tpu_pathtracer.render.envmap import with_importance_sampling
-    from tpu_pathtracer.scene.scene import make_env
-    from tpu_pathtracer.utils.image import procedural_hdr
+    from pathtracer.render.envmap import with_importance_sampling
+    from pathtracer.scene.scene import make_env
+    from pathtracer.utils.image import procedural_hdr
 
     env = with_importance_sampling(make_env(procedural_hdr(16, 32)))
     sc = scene.replace(env=env)
@@ -101,14 +101,14 @@ def test_indivisible_rejected(scene):
 
 
 def test_weak_scaling_per_device_work(scene):
-    """VERDICT r4 #4 done-condition: assert sharding DIVIDES the work —
+    """Done-condition: assert sharding DIVIDES the work —
     each device traces ~1/N of the path segments — not just that the
     stitched output is bitwise-equal (a replicate-then-slice bug would
     pass the bitwise tests while making every chip pay the full frame)."""
     from jax.sharding import PartitionSpec as P
 
-    from tpu_pathtracer.parallel.shard import shard_map
-    from tpu_pathtracer.render.integrator import (
+    from pathtracer.parallel.shard import shard_map
+    from pathtracer.render.integrator import (
         render_frame_stats,
         render_pixels,
     )

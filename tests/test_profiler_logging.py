@@ -9,8 +9,8 @@ import time
 
 import jax.numpy as jnp
 
-from tpu_pathtracer.runtime.profiler import FrameStats, xla_trace
-from tpu_pathtracer.utils import logging as plog
+from pathtracer.runtime.profiler import FrameStats, xla_trace
+from pathtracer.utils import logging as plog
 import pytest
 
 

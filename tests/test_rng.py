@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.utils import rng
+from pathtracer.utils import rng
 
 
 def test_uniform_range_and_mean():

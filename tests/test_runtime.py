@@ -7,10 +7,10 @@ import urllib.request
 import numpy as np
 import pytest
 
-from tpu_pathtracer.config import RenderConfig
-from tpu_pathtracer.render.camera import Camera
-from tpu_pathtracer.runtime.progressive import ProgressiveRenderer
-from tpu_pathtracer.scene.procedural import single_sphere_scene
+from pathtracer.config import RenderConfig
+from pathtracer.render.camera import Camera
+from pathtracer.runtime.progressive import ProgressiveRenderer
+from pathtracer.scene.procedural import single_sphere_scene
 
 
 def cfg_(**kw):
@@ -108,7 +108,7 @@ def test_checkpoint_config_mismatch_rejected(scene, tmp_path):
 
 
 def test_cli_offline_render(scene, tmp_path):
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     out = str(tmp_path / "out.png")
     rc = main(
@@ -128,7 +128,7 @@ def test_cli_offline_render(scene, tmp_path):
 def test_cli_denoise_and_aov_outputs(scene, tmp_path):
     from PIL import Image
 
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     out = str(tmp_path / "out.png")
     prefix = str(tmp_path / "g")
@@ -151,7 +151,7 @@ def test_cli_nee_defensive_smoke(scene, tmp_path):
     # procedural equirect env, and renders non-black output.
     from PIL import Image
 
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     out = str(tmp_path / "mix.png")
     rc = main(
@@ -166,21 +166,21 @@ def test_cli_nee_defensive_smoke(scene, tmp_path):
 
 
 def test_cli_dim_validation():
-    from tpu_pathtracer.cli import main
+    from pathtracer.cli import main
 
     with pytest.raises(SystemExit):
         main(["--dim", "banana"])
 
 
 def test_viewer_endpoints(scene):
-    from tpu_pathtracer.viewer import serve
+    from pathtracer.viewer import serve
 
     r = ProgressiveRenderer(scene, Camera(), cfg_())
     httpd, stop = serve(r, port=0, block=False)
     port = httpd.server_address[1]
     try:
         html = urllib.request.urlopen(f"http://127.0.0.1:{port}/").read()
-        assert b"tpu_pathtracer" in html
+        assert b"pathtracer" in html
         png = urllib.request.urlopen(f"http://127.0.0.1:{port}/frame.png").read()
         assert png[:8] == b"\x89PNG\r\n\x1a\n"
         stats = json.loads(
@@ -212,7 +212,7 @@ def test_viewer_endpoints(scene):
 def test_count_segments(scene):
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.integrator import camera_arrays, count_segments
+    from pathtracer.render.integrator import camera_arrays, count_segments
 
     cfg = cfg_()
     cam = camera_arrays(Camera(), cfg)
@@ -223,7 +223,7 @@ def test_count_segments(scene):
 
 
 def test_viewer_resize(scene):
-    from tpu_pathtracer.viewer import serve
+    from pathtracer.viewer import serve
 
     r = ProgressiveRenderer(scene, Camera(), cfg_())
     httpd, stop = serve(r, port=0, block=False)
@@ -245,8 +245,8 @@ def test_viewer_resize(scene):
 def test_cli_exr_output_is_linear_hdr(scene, tmp_path):
     # .exr gets the raw linear accumulation (values can exceed 1), not the
     # tonemapped u8 image.
-    from tpu_pathtracer.cli import main
-    from tpu_pathtracer.utils.image import load_exr
+    from pathtracer.cli import main
+    from pathtracer.utils.image import load_exr
 
     out = str(tmp_path / "out.exr")
     # Camera aimed straight at the sunsky sun (direction 0,2,3) so the
@@ -277,11 +277,11 @@ def test_checkpoint_scene_mismatch_rejected(scene, tmp_path):
 
 def test_segment_counts_schedule_invariant(scene):
     # All three schedules trace the same samples, so in-schedule counters
-    # must agree: stream vs regen vs wide (VERDICT r1: no duplicated
+    # must agree: stream vs regen vs wide (no duplicated
     # counting loop that can drift from what actually renders).
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.integrator import (
+    from pathtracer.render.integrator import (
         camera_arrays,
         count_segments,
         render_frame_stats,
@@ -310,7 +310,7 @@ def test_tiled_pixel_order_bitwise_identical(scene):
     # sample order, so the image must be BITWISE identical to scanline.
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
     base = dict(width=32, height=16, samples_per_launch=4, max_depth=3,
                 dof=False, env_mode="constant", intersector="brute",
@@ -381,7 +381,7 @@ def test_converge_ramp_weighted_mean(scene):
     the individual launches."""
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
     cfg = cfg_(samples_per_launch=8)
     r = ProgressiveRenderer(scene, Camera(), cfg)
@@ -410,8 +410,8 @@ def test_constant_spp_step_bitwise_unchanged(scene):
     plain step() sequences — and every existing checkpoint — reproduce."""
     import jax.numpy as jnp
 
-    from tpu_pathtracer.render.film import accumulate
-    from tpu_pathtracer.render.integrator import camera_arrays, render_frame
+    from pathtracer.render.film import accumulate
+    from pathtracer.render.integrator import camera_arrays, render_frame
 
     cfg = cfg_()
     r = ProgressiveRenderer(scene, Camera(), cfg)

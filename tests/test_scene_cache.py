@@ -1,6 +1,6 @@
 """Packed-scene cache: bitwise round-trip + dependency invalidation.
 
-VERDICT r3 #8: warm loads must skip decode/packing entirely.  The cache
+Warm loads must skip decode/packing entirely.  The cache
 is only correct if a warm scene is indistinguishable (every array, every
 static flag) from a cold build, and if ANY probed file changing —
 including a convention-map texture APPEARING where none existed —
@@ -13,7 +13,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from tpu_pathtracer.scene.cache import (
+from pathtracer.scene.cache import (
     SCHEMA,
     cache_key,
     load_packed_scene,
@@ -72,7 +72,7 @@ def _scene_arrays(s):
 
 
 def test_roundtrip_bitwise(scene_files, tmp_path):
-    from tpu_pathtracer.scene.builder import load_scene
+    from pathtracer.scene.builder import load_scene
 
     kw = dict(rng_seed=5, accel="cluster", accel_kw={"cluster_size": 64})
     cold = load_scene([scene_files], **kw)
@@ -92,7 +92,7 @@ def test_roundtrip_bitwise(scene_files, tmp_path):
 
 
 def test_env_attached_fresh_not_cached(scene_files, tmp_path):
-    from tpu_pathtracer.scene.scene import make_env
+    from pathtracer.scene.scene import make_env
 
     cdir = str(tmp_path / "cache")
     env = make_env(np.full((4, 8, 3), 2.5, np.float32))

@@ -4,12 +4,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_pathtracer.render.texsample import (
+from pathtracer.render.texsample import (
     material_property,
     sample_bilinear_pool,
     sample_bundle,
 )
-from tpu_pathtracer.scene.scene import make_texture_quads, pack_rgba8
+from pathtracer.scene.scene import make_texture_quads, pack_rgba8
 
 
 def numpy_bilinear(img, u, v):
@@ -84,7 +84,7 @@ def test_material_property_fallback():
 
 
 def test_bundle_matches_per_map():
-    from tpu_pathtracer.scene.scene import pack_bundle_rows
+    from pathtracer.scene.scene import pack_bundle_rows
 
     rs = np.random.RandomState(1)
     imgs = [rs.rand(6, 6, 3).astype(np.float32) for _ in range(4)]
@@ -128,13 +128,13 @@ def test_bundle_scrambled_matches_rowmajor():
     # Hash-permuted bundle rows (pow2 texel count) must sample identically
     # to the row-major layout — the permutation is applied at build AND at
     # sample time, so values are bit-equal.
-    from tpu_pathtracer.scene.scene import scramble_order
+    from pathtracer.scene.scene import scramble_order
 
     rs = np.random.RandomState(3)
     w = h = 8                                      # 64 texels: pow2
     imgs = [rs.rand(h, w, 3).astype(np.float32) for _ in range(4)]
     quads = np.concatenate([make_texture_quads(im) for im in imgs])
-    from tpu_pathtracer.scene.scene import pack_bundle_rows
+    from pathtracer.scene.scene import pack_bundle_rows
 
     n_tex = w * h
     kq = [quads[n_tex * k : n_tex * (k + 1)] for k in range(4)]
@@ -163,7 +163,7 @@ def test_bundle_scrambled_matches_rowmajor():
 def test_bundle_pow2_dims_matches_mod():
     """pow2_dims=True wraps texels with a bitwise AND; must equal the
     jnp.mod path bitwise, including the x0f == -1 wrap seam (u ~ 0)."""
-    from tpu_pathtracer.scene.scene import pack_bundle_rows
+    from pathtracer.scene.scene import pack_bundle_rows
 
     rs = np.random.RandomState(7)
     w, h = 8, 4

@@ -1,7 +1,7 @@
 """Image comparison harness: SSIM / PSNR / max-abs between two renders.
 
 Supports the BASELINE.md parity gate (SSIM > 0.99 vs the OptiX reference
-on the suitcase scene): render with tpu_pathtracer, then
+on the suitcase scene): render with pathtracer, then
 
     python tools/compare_images.py ours.png reference.png [--ssim-min 0.99]
 
@@ -19,7 +19,7 @@ import numpy as np
 
 
 def load(path: str) -> np.ndarray:
-    from tpu_pathtracer.utils.image import load_image
+    from pathtracer.utils.image import load_image
 
     return np.asarray(load_image(path), np.float64)
 
@@ -32,7 +32,7 @@ def main() -> int:
     ap.add_argument("--flip-b", action="store_true", help="flip B vertically first")
     args = ap.parse_args()
 
-    from tpu_pathtracer.utils.ssim import ssim
+    from pathtracer.utils.ssim import ssim
 
     a = load(args.image_a)
     b = load(args.image_b)

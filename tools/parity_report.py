@@ -75,11 +75,11 @@ def main() -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from tpu_pathtracer.render.integrator import camera_arrays  # noqa: F401
-    from tpu_pathtracer.runtime.progressive import ProgressiveRenderer
-    from tpu_pathtracer.scene.scenefile import load_scene_file
-    from tpu_pathtracer.utils.image import save_exr, save_png
-    from tpu_pathtracer.utils.logging import enable_compile_cache
+    from pathtracer.render.integrator import camera_arrays  # noqa: F401
+    from pathtracer.runtime.progressive import ProgressiveRenderer
+    from pathtracer.scene.scenefile import load_scene_file
+    from pathtracer.utils.image import save_exr, save_png
+    from pathtracer.utils.logging import enable_compile_cache
 
     enable_compile_cache()
     # Keep the scene file's own settings (incl. DOF — the reference
