@@ -58,10 +58,6 @@ class ClusterAccel:
     aabb8_child: jnp.ndarray = None   # [S*B,8] f32
     aabb8_super: jnp.ndarray = None   # [S,8] f32
     order_super: jnp.ndarray = None   # [8,S] i32
-    # Baldwin–Weber packed rows (pack_cluster_tris_bw) for tri_test="bw";
-    # same [C,16,K] shape as tris16 so the kernels swap operand + static
-    # test name only.
-    tris16bw: jnp.ndarray = None      # [C,16,K] f32
     # static metadata
     cluster_size: int = pytree.field(static=True, default=128)
     super_branch: int = pytree.field(static=True, default=8)
@@ -72,8 +68,8 @@ class ClusterAccel:
 
     def _want_sort(self, cfg) -> str:
         """Resolve cfg.sort_rays to the concrete mode for this scene:
-        "" (off), "octant", "spatial" or "entry" (see config.sort_rays)."""
-        if cfg.sort_rays in ("octant", "spatial", "entry"):
+        "" (off), "octant" or "spatial" (see config.sort_rays)."""
+        if cfg.sort_rays in ("octant", "spatial"):
             return cfg.sort_rays
         if cfg.sort_rays == "off" or self.num_clusters < 2:
             return ""
@@ -85,17 +81,6 @@ class ClusterAccel:
             and self.aabb8_super is not None
         )
 
-    def _tri(self, cfg):
-        """Resolve cfg.tri_test to (name, packed [C,16,K] operand) for the
-        kernels.  auto = "mt" (Möller–Trumbore, the formulation brute
-        force and the XLA scan use, so t agrees with them to rounding);
-        "bw" = Baldwin–Weber rows, which fall back to "mt" when the accel
-        carries none."""
-        mode = "mt" if cfg.tri_test == "auto" else cfg.tri_test
-        if mode == "bw" and self.tris16bw is None:
-            mode = "mt"
-        return mode, (self.tris16bw if mode == "bw" else self.tris16)
-
     def _dir_bits(self, cfg) -> int:
         """Resolve cfg.sort_dir_bits for this scene: auto (0) = 3 bits for
         many-cluster scenes (>= 256), else 2; -1 = off."""
@@ -104,29 +89,8 @@ class ClusterAccel:
         return max(cfg.sort_dir_bits, 0)
 
     def _sorted_rays(self, mode, origins, directions, cfg):
-        from pathtracer.ops.intersect_pallas import (
-            entry_rank, entry_sort_key, octant_sort, sort_by_key,
-        )
+        from pathtracer.ops.intersect_pallas import octant_sort
 
-        db = self._dir_bits(cfg)
-        if mode == "entry":
-            # posinv[o, c] = position of cluster c in octant o's
-            # front-to-back order (argsort inverts a permutation).
-            posinv = jnp.argsort(self.order, axis=1)
-            rank = entry_rank(
-                origins, directions, self.aabb8, posinv,
-                t_min=float(cfg.t_min), t_max=float(cfg.t_max),
-            )
-            octant = (
-                (directions[:, 0] > 0).astype(jnp.int32)
-                + 2 * (directions[:, 1] > 0).astype(jnp.int32)
-                + 4 * (directions[:, 2] > 0).astype(jnp.int32)
-            )
-            key = entry_sort_key(
-                octant, rank, self.num_clusters, directions=directions,
-                dir_bits=db,
-            )
-            return sort_by_key(origins, directions, key)
         bits = cfg.sort_spatial_bits
         if bits == 0:   # auto: finer cells for compact scenes
             bits = 7 if self.num_clusters < 256 else 5
@@ -136,21 +100,20 @@ class ClusterAccel:
             scene_lo=self.scene_lo,
             scene_hi=self.scene_hi,
             spatial_bits=bits if mode == "spatial" else 0,
-            dir_bits=db,
+            dir_bits=self._dir_bits(cfg),
         )
 
     def _kernel_args(self, cfg, t_min, t_max, query):
         """(operands, keyword arguments) of one kernel call."""
-        tri_name, tri_arr = self._tri(cfg)
         kw = dict(KERNEL_SHAPES[query], t_min=float(t_min),
-                  t_max=float(t_max), tri_test=tri_name)
+                  t_max=float(t_max))
         if cfg.pallas_rays_per_tile:
             kw["rays_per_tile"] = cfg.pallas_rays_per_tile
         if self._hier(cfg):
             kw.update(supers=(self.aabb8_super, self.order_super),
                       branch=self.super_branch)
-            return (tri_arr, self.aabb8_child, self.order), kw
-        return (tri_arr, self.aabb8, self.order), kw
+            return (self.tris16, self.aabb8_child, self.order), kw
+        return (self.tris16, self.aabb8, self.order), kw
 
     def intersect(self, vertices, origins, directions, t_min, t_max, cfg) -> Hit:
         """Closest hit over all clusters: the Triton packet kernel on the
@@ -378,11 +341,7 @@ def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, super_bra
     amin = blocks.reshape(c, -1, 3).min(axis=1)
     amax = blocks.reshape(c, -1, 3).max(axis=1)
 
-    from pathtracer.ops.intersect_pallas import (
-        octant_orders,
-        pack_cluster_tris,
-        pack_cluster_tris_bw,
-    )
+    from pathtracer.ops.intersect_pallas import octant_orders, pack_cluster_tris
 
     aabb8 = np.zeros((c, 8), np.float32)
     aabb8[:, 0:3] = amin
@@ -419,7 +378,6 @@ def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, super_bra
         aabb8_child=jnp.asarray(child),
         aabb8_super=jnp.asarray(super8),
         order_super=jnp.asarray(octant_orders(super8)),
-        tris16bw=jnp.asarray(pack_cluster_tris_bw(vertices, cluster_size)),
         cluster_size=cluster_size,
         super_branch=branch,
     )

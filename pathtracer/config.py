@@ -138,18 +138,9 @@ class RenderConfig:
     # lane).  "spatial" sorts by (origin Morton cell, octant) — spread-out
     # many-cluster scenes diverge by POSITION, and a pure octant sort
     # interleaves rays from the whole frame; "octant" sorts by direction
-    # octant alone.  "entry" sorts by (octant, front-to-back rank of the
-    # first slab-overlapped cluster): packets become entry-cluster-pure.
-    # "auto" = spatial for every scene with more than one cluster.  The
-    # XLA (CPU) traversal never sorts.
-    sort_rays: str = "auto"  # "auto" | "off" | "octant" | "spatial" | "entry"
-    # Triangle-test formulation inside the GPU kernel.  "mt" =
-    # Möller–Trumbore (the formulation of brute force and the XLA scan);
-    # "bw" = Baldwin–Weber precomputed-transform rows (fewer operations
-    # per test — t from a plane test, u/v affine in the hit point — but t
-    # differs from MT by up to ~3e-5 relative on the hero scene).  "auto"
-    # = mt.  The XLA traversal always uses mt.
-    tri_test: str = "auto"  # "auto" | "mt" | "bw"
+    # octant alone.  "auto" = spatial for every scene with more than one
+    # cluster.  The XLA (CPU) traversal never sorts.
+    sort_rays: str = "auto"  # "auto" | "off" | "octant" | "spatial"
     # Morton bits per axis for the spatial key (cells = 2^bits per axis).
     # 0 = auto: 7 for compact scenes (< 256 clusters), 5 for spread ones
     # (finer cells over-fragment the queue order there).
@@ -241,10 +232,8 @@ class RenderConfig:
             raise ValueError(f"invalid intersector: {self.intersector!r}")
         if self.pixel_order not in ("auto", "scanline", "tiled"):
             raise ValueError(f"invalid pixel_order: {self.pixel_order!r}")
-        if self.sort_rays not in ("auto", "off", "octant", "spatial", "entry"):
+        if self.sort_rays not in ("auto", "off", "octant", "spatial"):
             raise ValueError(f"invalid sort_rays: {self.sort_rays!r}")
-        if self.tri_test not in ("auto", "mt", "bw"):
-            raise ValueError(f"invalid tri_test: {self.tri_test!r}")
         if self.texture_lod not in ("auto", "off", "mip", "split"):
             raise ValueError(f"invalid texture_lod: {self.texture_lod!r}")
         if not (0 <= self.sort_spatial_bits <= 9):

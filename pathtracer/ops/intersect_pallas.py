@@ -145,60 +145,26 @@ def _mt_tests(tri, pr, t_min, t_max):
     return jnp.where(ok, t, jnp.float32(jnp.inf)), u, v
 
 
-def _bw_tests(tri, pr, t_min, t_max):
-    """Baldwin–Weber precomputed-transform test — same contract as
-    `_mt_tests` with fewer operations per test: t comes from a plane test
-    against the precomputed normal, u/v are affine in the hit point.
-    Rows (pack_cluster_tris_bw): n(0:3), d0=n.v0(3), p1(4:7),
-    c1=-p1.v0(7), p2(8:11), c2=-p2.v0(11); padding rows are all-zero =>
-    den==0 culls them exactly like MT's det==0."""
-    ox, oy, oz, dx, dy, dz, _, _, _ = pr
-    nx, ny, nz, d0, p1x, p1y, p1z, c1, p2x, p2y, p2z, c2 = tri[:12]
-
-    den = nx * dx + ny * dy + nz * dz
-    num = d0 - (nx * ox + ny * oy + nz * oz)
-    rcp = jnp.where(jnp.abs(den) > 1e-12, 1.0 / den, 0.0)
-    t = num * rcp
-    hx = ox + t * dx
-    hy = oy + t * dy
-    hz = oz + t * dz
-    u = p1x * hx + p1y * hy + p1z * hz + c1
-    v = p2x * hx + p2y * hy + p2z * hz + c2
-    # Validity chain as min-reductions: decision-identical to the
-    # 6-compare form (NaN u/v from far-ray overflow propagate through
-    # jnp.minimum and fail `>= 0` the same way; rcp != 0 <=> |den| >
-    # 1e-12 by construction).
-    bary_ok = jnp.minimum(jnp.minimum(u, v), 1.0 - (u + v)) >= 0.0
-    ok = bary_ok & (t > t_min) & (t < t_max) & (rcp != 0.0)
-    return jnp.where(ok, t, jnp.float32(jnp.inf)), u, v
-
-
-# Triangle-test formulation registry: the kernels take a static `tri_test`
-# name and the caller passes the matching packed operand (pack_cluster_tris
-# vs pack_cluster_tris_bw — same [C,16,K] shape).
-_TRI_TESTS = {"mt": (_mt_tests, 9), "bw": (_bw_tests, 12)}
-
-
-def _tri_slice(tris_ref, c, k0, rows, tri_block):
-    """(1,B) component rows of triangles [k0, k0+B) of cluster c."""
-    return [tris_ref[c, j, pl.ds(k0, tri_block)][None, :] for j in range(rows)]
+def _tri_slice(tris_ref, c, k0, tri_block):
+    """(1,B) component rows (v0, e1, e2) of triangles [k0, k0+B) of
+    cluster c."""
+    return [tris_ref[c, j, pl.ds(k0, tri_block)][None, :] for j in range(9)]
 
 
 def _closest_in_cluster(tris_ref, c, pr, carry, *, cluster_k, tri_block,
-                        t_min, t_max, tri_test):
+                        t_min, t_max):
     """Fold cluster c's triangles into the per-ray best (t, prim, u, v).
 
     Ties resolve to the lowest prim id (as in brute force) and the
     winner's barycentrics come off the same lane, so callers need no
     finalize gather."""
-    test, rows = _TRI_TESTS[tri_test]
     lane = jnp.arange(tri_block, dtype=jnp.int32)[None, :]
 
     def slice_(j, carry):
         best_t, best_p, best_u, best_v = carry
         k0 = j * tri_block
-        tc, u, v = test(_tri_slice(tris_ref, c, k0, rows, tri_block), pr,
-                        t_min, t_max)
+        tc, u, v = _mt_tests(_tri_slice(tris_ref, c, k0, tri_block), pr,
+                             t_min, t_max)
         t_blk = jnp.min(tc, axis=1, keepdims=True)                  # (R,1)
         gid = c * cluster_k + k0 + lane
         p_blk = jnp.min(jnp.where(tc == t_blk, gid, _BIG_PRIM), axis=1,
@@ -207,8 +173,11 @@ def _closest_in_cluster(tris_ref, c, pr, carry, *, cluster_k, tri_block,
         u_blk = jnp.sum(jnp.where(win, u, 0.0), axis=1, keepdims=True)
         v_blk = jnp.sum(jnp.where(win, v, 0.0), axis=1, keepdims=True)
         # Ties go to the lower prim id whatever the visit order, so a
-        # ray's result does not depend on which packet carried it.
-        better = (t_blk < best_t) | ((t_blk == best_t) & (p_blk < best_p))
+        # ray's result does not depend on which packet carried it.  A
+        # slice with no hit has t_blk = inf, which ties an unhit ray's
+        # best_t when t_max is inf: only a real hit may win.
+        better = ((t_blk < best_t)
+                  | ((t_blk == best_t) & (p_blk < best_p))) & (t_blk < jnp.inf)
         return (
             jnp.where(better, t_blk, best_t),
             jnp.where(better, p_blk, best_p),
@@ -220,13 +189,12 @@ def _closest_in_cluster(tris_ref, c, pr, carry, *, cluster_k, tri_block,
 
 
 def _any_in_cluster(tris_ref, c, pr, occ, *, cluster_k, tri_block, t_min,
-                    t_max, tri_test):
+                    t_max):
     """OR cluster c's hits into the per-ray occlusion flags (R,1) i32."""
-    test, rows = _TRI_TESTS[tri_test]
 
     def slice_(j, occ):
-        tc, _, _ = test(
-            _tri_slice(tris_ref, c, j * tri_block, rows, tri_block), pr,
+        tc, _, _ = _mt_tests(
+            _tri_slice(tris_ref, c, j * tri_block, tri_block), pr,
             t_min, t_max,
         )
         hit = jnp.max((tc < jnp.inf).astype(jnp.int32), axis=1,
@@ -239,14 +207,14 @@ def _any_in_cluster(tris_ref, c, pr, occ, *, cluster_k, tri_block, t_min,
 def _closest_kernel(aabb_ref, order_ref, sup_ref, sup_order_ref, rays_ref,
                     tris_ref, t_ref, prim_ref, u_ref, v_ref, *,
                     num_clusters, num_supers, branch, cluster_k, tri_block,
-                    t_min, t_max, tri_test):
+                    t_min, t_max):
     pr = _packet_rays(rays_ref)
     octant = _packet_octant(rays_ref)
     zero = pr[0] * 0.0
     carry = (zero + t_max, zero.astype(jnp.int32) + _BIG_PRIM, zero, zero)
     test = functools.partial(
         _closest_in_cluster, tris_ref, pr=pr, cluster_k=cluster_k,
-        tri_block=tri_block, t_min=t_min, t_max=t_max, tri_test=tri_test,
+        tri_block=tri_block, t_min=t_min, t_max=t_max,
     )
 
     def visit(c, carry):
@@ -286,7 +254,7 @@ def _closest_kernel(aabb_ref, order_ref, sup_ref, sup_order_ref, rays_ref,
 
 def _occluded_kernel(aabb_ref, order_ref, sup_ref, sup_order_ref, rays_ref,
                      tris_ref, occ_ref, *, num_clusters, num_supers, branch,
-                     cluster_k, tri_block, t_min, t_max, tri_test):
+                     cluster_k, tri_block, t_min, t_max):
     """Any-hit query (the reference's `traceOcclusion`, optixSphere.cu:
     134-156 — dead code there, live here for NEE shadow rays).
 
@@ -298,7 +266,7 @@ def _occluded_kernel(aabb_ref, order_ref, sup_ref, sup_order_ref, rays_ref,
     occ0 = (pr[0] * 0.0).astype(jnp.int32)
     test = functools.partial(
         _any_in_cluster, tris_ref, pr=pr, cluster_k=cluster_k,
-        tri_block=tri_block, t_min=t_min, t_max=t_max, tri_test=tri_test,
+        tri_block=tri_block, t_min=t_min, t_max=t_max,
     )
 
     def visit(c, occ):
@@ -348,7 +316,7 @@ def _pack_rays(origins, directions, rays_per_tile):
 
 def _traverse_call(kernel, outs, tris, aabbs, order, supers, origins,
                    directions, *, branch, t_min, t_max, rays_per_tile, tri_block,
-                   num_warps, num_stages, tri_test, interpret):
+                   num_warps, num_stages, interpret):
     """Shared pallas_call plumbing of the two traversal kernels."""
     c, _, k = tris.shape
     r = rays_per_tile
@@ -366,7 +334,7 @@ def _traverse_call(kernel, outs, tris, aabbs, order, supers, origins,
     body = functools.partial(
         kernel, num_clusters=c, num_supers=sup.shape[0], branch=branch,
         cluster_k=k, tri_block=tri_block, t_min=float(t_min),
-        t_max=float(t_max), tri_test=tri_test,
+        t_max=float(t_max),
     )
 
     def whole(x):
@@ -393,7 +361,7 @@ def _traverse_call(kernel, outs, tris, aabbs, order, supers, origins,
 
 
 _STATICS = ("branch", "t_min", "t_max", "rays_per_tile", "tri_block", "num_warps",
-            "num_stages", "tri_test", "interpret")
+            "num_stages", "interpret")
 
 
 @functools.partial(jax.jit, static_argnames=_STATICS)
@@ -411,7 +379,6 @@ def intersect_clusters(
     tri_block: int = 1,
     num_warps: int = 4,
     num_stages: int = 1,
-    tri_test: str = "mt",
     interpret: bool = False,
 ):
     """Closest hit over the cluster accel.  Returns (best_t [N],
@@ -426,7 +393,7 @@ def intersect_clusters(
         tris, aabbs, order, supers, origins, directions, branch=branch,
         t_min=t_min, t_max=t_max, rays_per_tile=rays_per_tile,
         tri_block=tri_block, num_warps=num_warps, num_stages=num_stages,
-        tri_test=tri_test, interpret=interpret,
+        interpret=interpret,
     )
     return t, prim, jnp.stack([u, v], axis=-1)
 
@@ -446,7 +413,6 @@ def occluded_clusters(
     tri_block: int = 1,
     num_warps: int = 4,
     num_stages: int = 1,
-    tri_test: str = "mt",
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Any-hit over the cluster accel; returns occluded [N] bool."""
@@ -455,7 +421,7 @@ def occluded_clusters(
         tris, aabbs, order, supers, origins, directions, branch=branch,
         t_min=t_min, t_max=t_max, rays_per_tile=rays_per_tile,
         tri_block=tri_block, num_warps=num_warps, num_stages=num_stages,
-        tri_test=tri_test, interpret=interpret,
+        interpret=interpret,
     )
     return occ > 0
 
@@ -473,22 +439,6 @@ def _part1by2(v: jnp.ndarray) -> jnp.ndarray:
     v = (v | (v << 4)) & jnp.uint32(0x030C30C3)
     v = (v | (v << 2)) & jnp.uint32(0x09249249)
     return v
-
-
-def _dir_refine(key, directions, dir_bits):
-    """Append `dir_bits` direction-magnitude bits per axis below `key`."""
-    cells = jnp.float32((1 << dir_bits) - 1)
-    mag = (jnp.clip(jnp.abs(directions), 0.0, 1.0) * cells).astype(jnp.uint32)
-    fine = (mag[:, 0] << (2 * dir_bits)) | (mag[:, 1] << dir_bits) | mag[:, 2]
-    return (key << (3 * dir_bits)) | fine
-
-
-def _octants(directions):
-    return (
-        (directions[:, 0] > 0).astype(jnp.uint32)
-        + 2 * (directions[:, 1] > 0).astype(jnp.uint32)
-        + 4 * (directions[:, 2] > 0).astype(jnp.uint32)
-    )
 
 
 def ray_sort_key(
@@ -511,7 +461,11 @@ def ray_sort_key(
     affected.  The key is clamped so 3*spatial_bits + 3 + 3*dir_bits fits
     u32."""
     dir_bits = min(dir_bits, max(0, (32 - 3 - 3 * spatial_bits) // 3))
-    key = _octants(directions)
+    key = (
+        (directions[:, 0] > 0).astype(jnp.uint32)
+        + 2 * (directions[:, 1] > 0).astype(jnp.uint32)
+        + 4 * (directions[:, 2] > 0).astype(jnp.uint32)
+    )
     if spatial_bits:
         lo = jnp.asarray(scene_lo, jnp.float32)
         span = jnp.maximum(jnp.asarray(scene_hi, jnp.float32) - lo, 1e-6)
@@ -525,98 +479,11 @@ def ray_sort_key(
         )
         key = key | (morton << 3)
     if dir_bits:
-        key = _dir_refine(key, directions, dir_bits)
+        cells = jnp.float32((1 << dir_bits) - 1)
+        mag = (jnp.clip(jnp.abs(directions), 0.0, 1.0) * cells).astype(jnp.uint32)
+        fine = (mag[:, 0] << (2 * dir_bits)) | (mag[:, 1] << dir_bits) | mag[:, 2]
+        key = (key << (3 * dir_bits)) | fine
     return key
-
-
-@functools.partial(jax.jit, static_argnames=("t_min", "t_max", "block"))
-def entry_rank(
-    origins: jnp.ndarray,      # [N,3]
-    directions: jnp.ndarray,   # [N,3]
-    aabb8: jnp.ndarray,        # [C,8] f32 cluster bounds
-    posinv: jnp.ndarray,       # [8,C] i32: posinv[o,c] = front-to-back
-    #                            position of cluster c in octant o's order
-    t_min: float = 0.01,
-    t_max: float = 1e16,
-    block: int = 128,
-) -> jnp.ndarray:
-    """[N] i32: front-to-back position (in the ray's octant order) of the
-    FIRST cluster whose AABB the ray's [t_min, t_max] segment overlaps —
-    i.e. which cluster the packet kernel would test first.  C where the
-    ray overlaps nothing (such rays sort to the end of their octant).
-
-    Sorting rays by (octant, entry rank) makes packets entry-cluster-pure,
-    so the slab-gated packet kernels degenerate to dense per-bucket
-    triangle tests.  Blocked over clusters so the [N, block] slab
-    temporaries bound memory; the per-octant rank is an exact integer
-    row lookup (no floating-point contraction)."""
-    c = aabb8.shape[0]
-    ox, oy, oz = origins[:, 0:1], origins[:, 1:2], origins[:, 2:3]
-    big = jnp.float32(3.4e38)
-    inv = jnp.where(jnp.abs(directions) > 1e-12, 1.0 / directions, big)
-    ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
-    octant = _octants(directions).astype(jnp.int32)
-    posinv = posinv.astype(jnp.int32)
-
-    c_pad = -(-c // block) * block
-    if c_pad > c:
-        pad = jnp.full((c_pad - c, 8), _FAR, aabb8.dtype)    # far points
-        aabb8 = jnp.concatenate([aabb8, pad], axis=0)
-        posinv = jnp.concatenate(
-            [posinv, jnp.full((8, c_pad - c), c, jnp.int32)], axis=1
-        )
-
-    def body(carry, inp):
-        b, pos_blk = inp                                      # [B,8], [8,B]
-        bounds = tuple(b[None, :, j] for j in range(6))
-        overlap = _slab_hits(bounds, (ox, oy, oz, None, None, None, ix, iy, iz),
-                             t_min, t_max)
-        sel = pos_blk[octant]                                 # [N,B] i32
-        cand = jnp.min(jnp.where(overlap, sel, c), axis=1)
-        return jnp.minimum(carry, cand), None
-
-    blocks = aabb8.reshape(c_pad // block, block, 8)
-    pos_blocks = posinv.reshape(8, c_pad // block, block).transpose(1, 0, 2)
-    rank, _ = lax.scan(
-        body, jnp.full((origins.shape[0],), c, jnp.int32), (blocks, pos_blocks)
-    )
-    return rank
-
-
-def entry_sort_key(
-    octant: jnp.ndarray,       # [N] i32
-    rank: jnp.ndarray,         # [N] i32 in [0, C]
-    num_clusters: int,
-    directions: jnp.ndarray = None,
-    dir_bits: int = 0,
-) -> jnp.ndarray:
-    """[N] u32 sort key: (octant, entry rank) with optional direction-
-    magnitude tiebreak bits.  Octant above the rank: the kernels' visit
-    order IS the octant's front-to-back cluster order, so adjacent
-    buckets are front-to-back adjacent."""
-    rank_bits = max(1, int(np.ceil(np.log2(num_clusters + 1))))
-    dir_bits = min(dir_bits, max(0, (32 - 3 - rank_bits) // 3))
-    key = (octant.astype(jnp.uint32) << rank_bits) | rank.astype(jnp.uint32)
-    if dir_bits:
-        key = _dir_refine(key, directions, dir_bits)
-    return key
-
-
-def sort_by_key(origins, directions, key):
-    """Stable-sort rays by a precomputed [N] u32 key; returns
-    (origins_s, directions_s, restore) where restore(x) un-permutes
-    per-ray results (first axis) with one gather by the inverse
-    permutation."""
-    n = origins.shape[0]
-    iota = jnp.arange(n, dtype=jnp.int32)
-    _, perm = lax.sort_key_val(key, iota)
-    _, inv = lax.sort_key_val(perm, iota)
-    packed = jnp.concatenate([origins, directions], axis=-1)[perm]
-
-    def restore(x):
-        return x[inv]
-
-    return packed[:, 0:3], packed[:, 3:6], restore
 
 
 def octant_sort(
@@ -637,11 +504,20 @@ def octant_sort(
     Compact scenes want the pure octant key (spatial_bits=0): all
     clusters overlap anyway, direction purity is what makes the
     front-to-back order cull.  The sort is stable, so ties preserve the
-    queue's pixel order either way."""
+    queue's pixel order either way.  `restore(x)` un-permutes per-ray
+    results (first axis) with one gather by the inverse permutation."""
     key = ray_sort_key(
         origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits
     )
-    return sort_by_key(origins, directions, key)
+    iota = jnp.arange(origins.shape[0], dtype=jnp.int32)
+    _, perm = lax.sort_key_val(key, iota)
+    _, inv = lax.sort_key_val(perm, iota)
+    packed = jnp.concatenate([origins, directions], axis=-1)[perm]
+
+    def restore(x):
+        return x[inv]
+
+    return packed[:, 0:3], packed[:, 3:6], restore
 
 
 # ---------------------------------------------------------------------------
@@ -689,32 +565,4 @@ def pack_cluster_tris(vertices: np.ndarray, cluster_size: int) -> np.ndarray:
     cols[:, 0:3] = v0
     cols[:, 3:6] = vertices[:, 1, :] - v0
     cols[:, 6:9] = vertices[:, 2, :] - v0
-    return _rows(cols, t, cluster_size)
-
-
-def pack_cluster_tris_bw(vertices: np.ndarray, cluster_size: int) -> np.ndarray:
-    """[T,3,3] Morton-permuted vertices -> [C,16,K] Baldwin–Weber rows for
-    `_bw_tests`: n(0:3), d0=n.v0(3), p1(4:7), c1=-p1.v0(7), p2(8:11),
-    c2=-p2.v0(11), rest zero.  Degenerate (zero-area) triangles get n=0
-    rows and are culled by the den==0 guard, matching MT's det==0
-    behaviour; padding rows are all-zero for the same reason."""
-    t = vertices.shape[0]
-    cols = np.zeros((t, 16), np.float32)
-    if t:
-        v0 = vertices[:, 0, :].astype(np.float64)
-        e1 = vertices[:, 1, :].astype(np.float64) - v0
-        e2 = vertices[:, 2, :].astype(np.float64) - v0
-        n = np.cross(e1, e2)
-        nn = (n * n).sum(-1, keepdims=True)
-        ok = nn > 1e-30
-        safe = np.where(ok, nn, 1.0)
-        p1 = np.where(ok, np.cross(e2, n) / safe, 0.0)
-        p2 = np.where(ok, np.cross(n, e1) / safe, 0.0)
-        n = np.where(ok, n, 0.0)
-        cols[:, 0:3] = n
-        cols[:, 3:4] = (n * v0).sum(-1, keepdims=True)
-        cols[:, 4:7] = p1
-        cols[:, 7:8] = -(p1 * v0).sum(-1, keepdims=True)
-        cols[:, 8:11] = p2
-        cols[:, 11:12] = -(p2 * v0).sum(-1, keepdims=True)
     return _rows(cols, t, cluster_size)

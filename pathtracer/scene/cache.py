@@ -34,7 +34,7 @@ import numpy as np
 
 # Bump when any packed array layout changes (tri_attrs columns, material
 # attr columns, bundle row format, ClusterAccel fields, ...).
-SCHEMA = 3  # 3: ClusterAccel triangle rows as [C,16,K] (kernel layout)
+SCHEMA = 4  # 4: ClusterAccel without the second triangle-row packing
 
 _MT_STATICS = (
     "bundled",
@@ -72,7 +72,6 @@ _ACCEL_ARRAYS = (
     "aabb8_child",
     "aabb8_super",
     "order_super",
-    "tris16bw",
 )
 _ACCEL_STATICS = ("cluster_size", "super_branch")
 

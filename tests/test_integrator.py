@@ -272,7 +272,7 @@ def test_config_validation_rejects_degenerate_knobs():
 
     for kw in (dict(fifo_depth=0), dict(flush_every=0),
                dict(deferred_chunk_div=0), dict(sort_spatial_bits=10),
-               dict(sort_rays="bogus"), dict(tri_test="bogus"),
+               dict(sort_rays="bogus"), dict(sort_rays="entry"),
                dict(sort_dir_bits=5), dict(hier_min_clusters=1)):
         with _pytest.raises(ValueError):
             RenderConfig(**kw)

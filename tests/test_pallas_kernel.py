@@ -61,37 +61,30 @@ def rays(n, seed):
     return o, d
 
 
-def run_kernel(scene, o, d, r=128, tri_block=1, tri_test="mt", t_max=1e16):
+def run_kernel(scene, o, d, r=128, tri_block=1, t_max=1e16):
     acc = scene.accel
-    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
     bt, bp, buv = intersect_clusters(
-        tris, acc.aabb8, acc.order, o, d, t_min=0.01, t_max=t_max,
-        rays_per_tile=r, tri_block=tri_block, tri_test=tri_test,
-        interpret=True,
+        acc.tris16, acc.aabb8, acc.order, o, d, t_min=0.01, t_max=t_max,
+        rays_per_tile=r, tri_block=tri_block, interpret=True,
     )
     prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
     return np.asarray(bt), prim, np.asarray(buv)
 
 
 @pytest.mark.parametrize("tri_block", [1, 4, 16])
-@pytest.mark.parametrize("tri_test", ["mt", "bw"])
-def test_kernel_matches_brute(clustered, tri_block, tri_test):
+@pytest.mark.parametrize("r", [16, 128])
+def test_kernel_matches_brute(clustered, tri_block, r):
     o, d = rays(256, 0)
-    bt, prim, buv = run_kernel(clustered, o, d, tri_block=tri_block,
-                               tri_test=tri_test)
+    bt, prim, buv = run_kernel(clustered, o, d, r=r, tri_block=tri_block)
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
     hit = prim >= 0
     assert hit.sum() > 50
-    if tri_test == "mt":
-        np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=1e-5)
-        # Kernel-carried winner barycentrics match the finalize recompute.
-        np.testing.assert_allclose(
-            buv[hit], np.asarray(hb.bary)[hit], rtol=1e-4, atol=1e-6
-        )
-    else:
-        # bw reassociates the test arithmetic (see test_bw_tri_test_matches_mt).
-        np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=5e-4)
+    np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=1e-5)
+    # Kernel-carried winner barycentrics match the finalize recompute.
+    np.testing.assert_allclose(
+        buv[hit], np.asarray(hb.bary)[hit], rtol=1e-4, atol=1e-6
+    )
 
 
 @pytest.mark.parametrize("r", [32, 64])
@@ -110,6 +103,33 @@ def test_kernel_segment_tmax(clustered):
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 3.0)
     np.testing.assert_array_equal(prim, np.asarray(hb.prim))
     assert (prim >= 0).any() and (bt[prim >= 0] < 3.0).all()
+
+
+@pytest.mark.parametrize("tri_block", [1, 16])
+def test_kernel_infinite_tmax(clustered, tri_block):
+    """t_max = inf: a triangle slice with no hit (t = inf) must not win
+    the lowest-prim tie rule against an unhit ray's best t (also inf)."""
+    o, d = rays(256, 9)
+    bt, prim, _ = run_kernel(clustered, o, d, tri_block=tri_block,
+                             t_max=float("inf"))
+    hb = intersect_brute(clustered.vertices, o, d, 0.01, float("inf"))
+    np.testing.assert_array_equal(prim, np.asarray(hb.prim))
+    hit = prim >= 0
+    assert hit.any() and not hit.all()
+    assert np.isinf(bt[~hit]).all()
+    np.testing.assert_allclose(bt[hit], np.asarray(hb.t)[hit], rtol=1e-5)
+
+
+def test_occlusion_infinite_tmax(clustered):
+    o, d = rays(256, 10)
+    acc = clustered.accel
+    occ = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
+                            t_min=0.01, t_max=float("inf"), rays_per_tile=64,
+                            interpret=True)
+    want = np.asarray(occluded_brute(clustered.vertices, o, d, 0.01,
+                                     float("inf")))
+    np.testing.assert_array_equal(np.asarray(occ), want)
+    assert want.any() and not want.all()
 
 
 def test_kernel_launch_shape_validation(clustered):
@@ -136,94 +156,6 @@ def test_pack_cluster_tris_layout():
     np.testing.assert_allclose(packed[0, :, 1:], 0.0)
 
 
-def test_pack_cluster_tris_bw_layout():
-    from pathtracer.ops.intersect_pallas import pack_cluster_tris_bw
-
-    verts = np.asarray(
-        [[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32
-    )
-    packed = pack_cluster_tris_bw(verts, cluster_size=4)
-    assert packed.shape == (1, 16, 4)
-    # Unit right triangle in z=0 plane: n = e1 x e2 = +z, d0 = 0,
-    # p1 = e2 x n / |n|^2 = (1,0,0), p2 = n x e1 = (0,1,0), c1 = c2 = 0.
-    np.testing.assert_allclose(packed[0, 0:3, 0], [0, 0, 1])   # n
-    np.testing.assert_allclose(packed[0, 3, 0], 0.0)           # d0
-    np.testing.assert_allclose(packed[0, 4:7, 0], [1, 0, 0])   # p1
-    np.testing.assert_allclose(packed[0, 7, 0], 0.0)           # c1
-    np.testing.assert_allclose(packed[0, 8:11, 0], [0, 1, 0])  # p2
-    np.testing.assert_allclose(packed[0, 11, 0], 0.0)          # c2
-    # padding triangles are all-zero (n = 0 -> den == 0 culls)
-    np.testing.assert_allclose(packed[0, :, 1:], 0.0)
-    # degenerate (zero-area) real triangle also packs to a culled row
-    degen = np.asarray([[[1, 2, 3], [1, 2, 3], [1, 2, 3]]], np.float32)
-    np.testing.assert_allclose(pack_cluster_tris_bw(degen, 4)[0, :, 0], 0.0)
-
-
-def test_bw_tri_test_matches_mt(clustered):
-    """tri_test="bw" (Baldwin–Weber rows) agrees with the MT kernel:
-    identical hit decisions and prims on the probe ray set, t/uv to
-    formulation-reassociation tolerance."""
-    o, d = rays(256, 2)
-    bt_m, bp_m, buv_m = run_kernel(clustered, o, d, tri_test="mt")
-    bt_b, bp_b, buv_b = run_kernel(clustered, o, d, tri_test="bw")
-    np.testing.assert_array_equal(bp_b, bp_m)
-    hit = bp_m >= 0
-    assert hit.sum() > 50
-    np.testing.assert_allclose(bt_b[hit], bt_m[hit], rtol=5e-4)
-    np.testing.assert_allclose(buv_b[hit], buv_m[hit], rtol=5e-3, atol=5e-5)
-
-
-def test_bw_occlusion_matches_mt(clustered):
-    """Any-hit under tri_test="bw" returns the same occlusion bits as MT."""
-    o, d = rays(256, 3)
-    acc = clustered.accel
-    occ_m = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d,
-                              rays_per_tile=64, interpret=True)
-    occ_b = occluded_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
-                              rays_per_tile=64, tri_test="bw", interpret=True)
-    np.testing.assert_array_equal(np.asarray(occ_b), np.asarray(occ_m))
-    assert np.asarray(occ_m).sum() > 20
-
-
-def test_tri_test_auto_resolves_bw(clustered):
-    """Explicit "bw" resolves to the Baldwin–Weber rows; auto resolves to
-    "mt" (t agrees with brute force to rounding); with no bw rows "bw"
-    falls back to "mt"."""
-    from pathtracer.config import RenderConfig
-
-    acc = clustered.accel
-    assert acc._tri(RenderConfig())[0] == "mt"
-    assert acc._tri(RenderConfig(tri_test="mt"))[0] == "mt"
-    assert acc._tri(RenderConfig(tri_test="bw"))[0] == "bw"
-    old = acc.replace(tris16bw=None)
-    assert old._tri(RenderConfig())[0] == "mt"
-    assert old._tri(RenderConfig(tri_test="bw"))[0] == "mt"
-
-
-def test_bw_render_matches_mt_end_to_end(clustered, kernel_route):
-    """Full render through the kernel route with tri_test="bw" vs "mt" —
-    closest-hit + shading + film stay visually identical; only
-    discrete-decision flips from the t reassociation may differ on
-    isolated lanes."""
-    from pathtracer.config import RenderConfig
-    from pathtracer.render.camera import Camera
-    from pathtracer.render.integrator import camera_arrays, render_frame
-
-    cfg = dict(
-        width=24, height=16, samples_per_launch=2, max_depth=3,
-        dof=False, env_mode="constant", intersector="cluster",
-    )
-    cam = camera_arrays(Camera(), RenderConfig(**cfg))
-    img_m = np.asarray(render_frame(
-        clustered, cam, RenderConfig(**cfg, tri_test="mt"), jnp.int32(0)
-    ))
-    img_b = np.asarray(render_frame(
-        clustered, cam, RenderConfig(**cfg, tri_test="bw"), jnp.int32(0)
-    ))
-    close = np.isclose(img_b, img_m, rtol=1e-3, atol=1e-4)
-    assert close.mean() > 0.995, f"bw vs mt pixel agreement {close.mean()}"
-
-
 def test_kernel_route_render_matches_xla_route(clustered, kernel_route):
     """A render through the kernel route (sorted packets) agrees with the
     XLA cluster scan (the CPU route) up to rounding of the kernel-carried
@@ -234,7 +166,7 @@ def test_kernel_route_render_matches_xla_route(clustered, kernel_route):
 
     cfg = RenderConfig(width=24, height=16, samples_per_launch=2,
                        max_depth=3, dof=False, env_mode="constant",
-                       intersector="cluster", tri_test="mt")
+                       intersector="cluster")
     cam = camera_arrays(Camera(), cfg)
     img_k = np.asarray(render_frame(clustered, cam, cfg, jnp.int32(0)))
     with pytest.MonkeyPatch.context() as mp:
@@ -434,83 +366,6 @@ def test_hier_occlusion_matches_brute(many_clusters):
     assert np.asarray(want).sum() > 20
 
 
-def test_entry_rank_matches_scalar_reference(clustered):
-    """entry_rank == first front-to-back position whose cluster AABB the
-    ray's [t_min, t_max] segment slab-overlaps (scalar numpy replay)."""
-    from pathtracer.ops.intersect_pallas import entry_rank
-
-    acc = clustered.accel
-    aabb8 = np.asarray(acc.aabb8)
-    order = np.asarray(acc.order)
-    c = acc.num_clusters
-    rs = np.random.RandomState(11)
-    n = 300
-    o = (rs.randn(n, 3) * 3).astype(np.float32)
-    d = rs.randn(n, 3).astype(np.float32)
-
-    # block < C exercises the padded-block path.
-    rank = np.asarray(entry_rank(
-        jnp.asarray(o), jnp.asarray(d), acc.aabb8,
-        jnp.argsort(acc.order, axis=1), t_min=0.01, t_max=1e16,
-        block=max(8, c // 2),
-    ))
-
-    def slab(o1, d1, lo, hi):
-        inv = np.where(np.abs(d1) > 1e-12, 1.0 / d1, 3.4e38)
-        t0 = (lo - o1) * inv
-        t1 = (hi - o1) * inv
-        tn = np.minimum(t0, t1).max()
-        tf = np.maximum(t0, t1).min()
-        return (tn <= tf) and (tf >= 0.01) and (tn <= 1e16)
-
-    for i in range(n):
-        oct_ = int((d[i, 0] > 0) + 2 * (d[i, 1] > 0) + 4 * (d[i, 2] > 0))
-        want = c
-        for pos in range(c):
-            cid = order[oct_, pos]
-            if slab(o[i], d[i], aabb8[cid, 0:3], aabb8[cid, 3:6]):
-                want = pos
-                break
-        assert rank[i] == want, (i, rank[i], want)
-
-
-def test_entry_sort_roundtrip_and_kernel_equivalence(clustered):
-    """The entry-cluster bucketing sort (cfg.sort_rays='entry') is a
-    bijection whose restore lands per-ray results back on source lanes;
-    kernel results through it match brute exactly; keys are octant-major
-    with the entry rank below."""
-    from pathtracer.config import RenderConfig
-    from pathtracer.ops.intersect_pallas import entry_rank, entry_sort_key
-
-    acc = clustered.accel
-    cfg = RenderConfig(width=8, height=8, sort_rays="entry")
-    o, d = rays(200, 13)
-
-    o_s, d_s, restore = acc._sorted_rays("entry", o, d, cfg)
-    np.testing.assert_array_equal(np.asarray(restore(o_s)), np.asarray(o))
-    np.testing.assert_array_equal(np.asarray(restore(d_s)), np.asarray(d))
-
-    _, prim_s, _ = run_kernel(clustered, o_s, d_s)
-    prim = np.asarray(restore(jnp.asarray(prim_s)))
-    hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
-    np.testing.assert_array_equal(prim, np.asarray(hb.prim))
-
-    # Sorted keys are non-decreasing and octant-major.
-    posinv = jnp.argsort(acc.order, axis=1)
-    rank = entry_rank(o_s, d_s, acc.aabb8, posinv)
-    octant = (
-        (np.asarray(d_s)[:, 0] > 0).astype(np.int32)
-        + 2 * (np.asarray(d_s)[:, 1] > 0).astype(np.int32)
-        + 4 * (np.asarray(d_s)[:, 2] > 0).astype(np.int32)
-    )
-    key = np.asarray(entry_sort_key(
-        jnp.asarray(octant), rank, acc.num_clusters,
-        directions=d_s, dir_bits=acc._dir_bits(cfg),
-    ))
-    assert (np.diff(key.astype(np.int64)) >= 0).all()
-    assert (np.diff(octant) >= 0).all()
-
-
 @pytest.mark.parametrize("query", ["closest", "any", "closest-two-level"])
 def test_kernels_lower_for_cuda(many_clusters, query):
     """The Triton lowering accepts both kernels (and the two-level walk)
@@ -519,19 +374,19 @@ def test_kernels_lower_for_cuda(many_clusters, query):
     device, so this runs on the CPU."""
     acc = many_clusters.accel
     o, d = rays(1024, 0)
-    kw = dict(rays_per_tile=128, tri_block=4, num_warps=4, tri_test="bw")
+    kw = dict(rays_per_tile=128, tri_block=4, num_warps=4)
     if query == "any":
         def fn(o, d):
-            return occluded_clusters(acc.tris16bw, acc.aabb8, acc.order,
+            return occluded_clusters(acc.tris16, acc.aabb8, acc.order,
                                      o, d, **kw)
     elif query == "closest":
         def fn(o, d):
-            return intersect_clusters(acc.tris16bw, acc.aabb8, acc.order,
+            return intersect_clusters(acc.tris16, acc.aabb8, acc.order,
                                       o, d, **kw)
     else:
         def fn(o, d):
             return intersect_clusters(
-                acc.tris16bw, acc.aabb8_child, acc.order, o, d,
+                acc.tris16, acc.aabb8_child, acc.order, o, d,
                 supers=(acc.aabb8_super, acc.order_super),
                 branch=acc.super_branch, **kw)
     text = jax.jit(fn).trace(o, d).lower(
@@ -545,12 +400,10 @@ def test_kernels_on_card_match_brute(gpu, clustered):
     """On the card: the compiled Triton kernels agree with brute force."""
     o, d = rays(4096, 21)
     acc = clustered.accel
-    _, bp, _ = intersect_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
-                                  tri_test="bw")
+    _, bp, _ = intersect_clusters(acc.tris16, acc.aabb8, acc.order, o, d)
     hb = intersect_brute(clustered.vertices, o, d, 0.01, 1e16)
     prim = np.where(np.asarray(bp) == 0x7FFFFFFF, -1, np.asarray(bp))
     assert (prim == np.asarray(hb.prim)).mean() >= 0.9999
-    occ = occluded_clusters(acc.tris16bw, acc.aabb8, acc.order, o, d,
-                            tri_test="bw")
+    occ = occluded_clusters(acc.tris16, acc.aabb8, acc.order, o, d)
     want = occluded_brute(clustered.vertices, o, d, 0.01, 1e16)
     assert (np.asarray(occ) == np.asarray(want)).mean() >= 0.9999

@@ -2,12 +2,12 @@
 
 Phases (--phases, comma separated):
   kernels  traversal at 131,072 rays: Triton kernel launch shapes
-           (rays per packet, triangles per slice, warps, two-level walk,
-           triangle test); with "baselines" also the XLA cluster scan and
-           brute force on the same rays;
+           (rays per packet, triangles per slice, warps, two-level walk);
+           with "baselines" also the XLA cluster scan and brute force on
+           the same rays;
   e2e      render_frame at 1920x1080, 10 spp, depth 8 through the kernel:
-           packet size, triangle test and sorting on the hero-sized
-           scene, flat vs two-level walk on the 100k scene;
+           packet size and sorting on the hero-sized scene, flat vs
+           two-level walk on the 100k scene;
   e2e_baselines  the same renders through brute force and the XLA
            cluster scan (slow: tens of seconds per 100k-scene launch);
   ops      one-hot row lookup vs plain gather, triangular-matmul prefix
@@ -58,12 +58,11 @@ def timed(fn, *args, reps: int = 10):
     return first, float(np.median(ts)), float(np.min(ts))
 
 
-# (rays per packet, triangles per slice, warps, two-level branch, test)
+# (rays per packet, triangles per slice, warps, two-level branch)
 KERNEL_VARIANTS = {
-    "closest": [(32, 16, 4, 8, "mt"), (16, 16, 4, 8, "mt"),
-                (16, 16, 2, 8, "mt"), (16, 32, 4, 8, "mt"),
-                (32, 16, 4, 0, "mt"), (16, 16, 4, 0, "mt")],
-    "any": [(128, 16, 4, 8, "mt"), (64, 32, 4, 8, "mt")],
+    "closest": [(32, 16, 4, 8), (16, 16, 4, 8), (16, 16, 2, 8),
+                (16, 32, 4, 8), (32, 16, 4, 0), (16, 16, 4, 0)],
+    "any": [(128, 16, 4, 8), (64, 32, 4, 8)],
 }
 
 
@@ -84,32 +83,30 @@ def phase_kernels(hero, field, baselines: bool) -> None:
         emit(phase="kernels", scene=name, variant="spatial sort", median_s=med,
              min_s=mn)
 
-        def kern(r, tb, nw, branch, test, occluded):
+        def kern(r, tb, nw, branch, occluded):
             fn = ip.occluded_clusters if occluded else ip.intersect_clusters
-            tris = acc.tris16bw if test == "bw" else acc.tris16
-            kw = dict(rays_per_tile=r, tri_block=tb, num_warps=nw,
-                      tri_test=test)
+            kw = dict(rays_per_tile=r, tri_block=tb, num_warps=nw)
             if branch:
-                args = (tris, acc.aabb8_child, acc.order)
+                args = (acc.tris16, acc.aabb8_child, acc.order)
                 kw.update(supers=(acc.aabb8_super, acc.order_super),
                           branch=branch)
             else:
-                args = (tris, acc.aabb8, acc.order)
+                args = (acc.tris16, acc.aabb8, acc.order)
             return jax.jit(lambda o, d: fn(*args, o, d, **kw))
 
         for query, variants in KERNEL_VARIANTS.items():
-            for r, tb, nw, br, test in variants:
+            for r, tb, nw, br in variants:
                 try:
                     first, med, mn = timed(
-                        kern(r, tb, nw, br, test, query == "any"), os_, ds_)
+                        kern(r, tb, nw, br, query == "any"), os_, ds_)
                     emit(phase="kernels", scene=name, query=query,
                          variant=f"triton R={r} tb={tb} warps={nw} "
-                         f"branch={br} test={test}",
+                         f"branch={br}",
                          compile_s=first, median_s=med, min_s=mn)
                 except Exception as e:  # noqa: BLE001 — report and go on
                     emit(phase="kernels", scene=name, query=query,
-                         variant=f"R={r} tb={tb} warps={nw} branch={br} "
-                         f"test={test}", error=str(e)[:300])
+                         variant=f"R={r} tb={tb} warps={nw} branch={br}",
+                         error=str(e)[:300])
         if not baselines:
             continue
         xla = jax.jit(lambda o, d: acc._intersect_xla(
@@ -171,7 +168,6 @@ def phase_e2e(hero, field) -> None:
                     render_cfg(pallas_rays_per_tile=rpt))
         time_render(f"field kernel two-level R={rpt}", field, fc,
                     render_cfg(pallas_rays_per_tile=rpt))
-    time_render("hero kernel bw", hero, hc, render_cfg(tri_test="bw"))
     time_render("hero kernel unsorted", hero, hc, render_cfg(sort_rays="off"))
     time_render("field kernel flat", field, fc,
                 render_cfg(hier_min_clusters=1 << 30))
